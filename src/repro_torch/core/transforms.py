@@ -1,0 +1,9 @@
+"""Normalisation constants of the preprocess stage (counterpart of
+``repro.core.transforms``; the resize/crop/attack ops come with the
+other ingest paths)."""
+from __future__ import annotations
+
+import numpy as np
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)

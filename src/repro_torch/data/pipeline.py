@@ -1,0 +1,28 @@
+"""Synthetic procedural images for detection runs (numpy copy of
+``repro.data.pipeline.synth_image``, so the port
+never imports the JAX package).  Deterministic given (seed, index)."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def synth_image(idx: int, size: int = 256, seed: int = 0) -> np.ndarray:
+    """Deterministic procedural RGB image (uint8 HWC): mixed gradients,
+    sinusoids and rectangles."""
+    rng = np.random.default_rng(np.uint64(seed) * 1_000_003 + np.uint64(idx))
+    yy, xx = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size),
+                         indexing="ij")
+    img = np.zeros((size, size, 3), np.float32)
+    for c in range(3):
+        a, b, ph = rng.uniform(1, 6, 3)
+        img[..., c] = 0.5 + 0.25 * np.sin(2 * np.pi * (a * yy + b * xx) + ph)
+    # random soft rectangles
+    for _ in range(6):
+        y0, x0 = rng.integers(0, max(size - 8, 1), 2)
+        h, w = rng.integers(min(8, size // 4 + 1), max(size // 2, 9), 2)
+        col = rng.uniform(0, 1, 3)
+        alpha = rng.uniform(0.2, 0.7)
+        img[y0:y0 + h, x0:x0 + w] = (1 - alpha) * img[y0:y0 + h, x0:x0 + w] \
+            + alpha * col
+    noise = rng.normal(0, 0.02, img.shape)
+    return np.clip((img + noise) * 255, 0, 255).astype(np.uint8)

@@ -1,0 +1,112 @@
+"""PyTorch port: isolation from JAX and the CUDA-by-default contract.
+
+``repro_torch`` and ``chip_smoke.py`` must import nothing of ``jax`` and
+nothing of the JAX package ``repro``: a subprocess with both blocked in
+``sys.modules`` imports every port module and runs ``detect_batch`` on
+the CPU.  The entry points run on the card unless the caller asks for
+the CPU, and ``chip_smoke.py`` exits non-zero with no result line when
+there is no card or when the repository is not beside it.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import extractor as ex
+from repro_torch.core.detect import DetectionConfig, DetectionPipeline
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_ISOLATED = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path[:0] = [{src!r}, {root!r}]
+import numpy as np, torch
+torch.set_num_threads(1)
+import repro_torch, chip_smoke
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+from repro_torch.core import extractor as ex
+from repro_torch.core.detect import DetectionConfig, DetectionPipeline
+p = ex.init_extractor_numpy(0, n_bits=60, channels=16, depth=3, tile=16)
+pipe = DetectionPipeline(DetectionConfig(tile=16, img_size=32,
+                                         resize_src=40), p, device="cpu")
+raw = np.random.default_rng(0).integers(0, 256, (3, 64, 64, 3), np.uint8)
+out = pipe.detect_batch(raw)
+assert out["message_bits"].shape == (3, 48)
+assert out["logits"].shape == (3, 60) and np.isfinite(out["logits"]).all()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+assert all(sys.modules[m] is None for m in bad), bad
+print("ISOLATED-OK")
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_port_runs_with_jax_and_repro_blocked():
+    code = _ISOLATED.format(src=str(ROOT / "src"), root=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=_env(), cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED-OK" in res.stdout
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_pipeline_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = ex.init_extractor_numpy(0, n_bits=60, channels=16, depth=3, tile=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DetectionPipeline(DetectionConfig(tile=16, img_size=32,
+                                          resize_src=40), p)
+
+
+_FAKE_CUDA = r"""
+import runpy, sys, torch
+torch.cuda.is_available = lambda: {avail}
+sys.argv = [{script!r}]
+runpy.run_path({script!r}, run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("avail,alone", [(False, False), (True, True)],
+                         ids=["no-cuda", "script-alone"])
+def test_chip_smoke_fails_without_card_or_repo(tmp_path, avail, alone):
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    code = _FAKE_CUDA.format(avail=avail, script=str(script))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=_env(), cwd=tmp_path)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
