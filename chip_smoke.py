@@ -12,16 +12,30 @@ In order, it
 3. holds each kernel against its plain PyTorch version on the card at
    the main path's shapes (batch 32, full width) and at batch 1 and a
    ragged 5 — integers exactly equal, floats within the stated
-   tolerance — and times both with CUDA events (median call time);
+   tolerance — and times both with CUDA events (median call time); the
+   full-image ingest kernel also at two scaling geometries and against
+   the tile-first kernel (staged tiles equal tile-first tiles exactly),
+   the blocked decode kernel on every candidate schedule and three
+   explicit points against its plain version and, bitwise, against the
+   flat kernel, then an autotune sweep into
+   ``build/chip_smoke/decode_schedules.json``;
 4. drives the serve launcher's code path (``repro_torch.launch.serve``)
    at full width for 3 batches of 32 synthetic images, checks that every
    kernel of the path was launched, replays one batch through the plain
    versions, and prints images/s; then times three longer windows of
    the same stream (images/s), and profiles one more pass (device busy
    time by kernel, idle share);
-5. checks the default path against the JAX package's golden outputs
-   (``tests/data/torch_port_golden.npz``);
-6. prints one ``{"kernels": [...]}`` line and, last, the status line.
+5. drives the serve path, 3 batches of 32 each, in every other
+   configuration — qrmark with ``--staged-ingest``, ``--schedule auto``
+   (from the sweep's cache), ``--schedule bb4-ct32-db`` and
+   ``--rs-mode cpu_pool``, ``--mode tiled``, ``--mode sequential
+   --rs-mode cpu_sync`` (the paper's baseline) and ``--mode
+   sequential`` — checking each one's launch counts and its results
+   against the default path's, and prints images/s for each and the
+   ratio of the default path's median window to each sequential run;
+6. checks the default and the staged path against the JAX package's
+   golden outputs (``tests/data/torch_port_golden.npz``);
+7. prints one ``{"kernels": [...]}`` line and, last, the status line.
 
 Every failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available or when
@@ -30,6 +44,8 @@ nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -127,6 +143,7 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float):
 # -- phase 3a: tile-first ingest ------------------------------------------
 def phase_ingest(dev, rng):
     import torch
+    from repro_torch.kernels import fused_preprocess as fp
     from repro_torch.kernels import fused_tile_preprocess as ftp
     l, crop = FULL["tile"], FULL["img_size"]
     grid = crop // l
@@ -157,7 +174,7 @@ def phase_ingest(dev, rng):
         lambda: ftp.fused_tile_preprocess_cuda(raw, offs, **kw),
         lambda: ftp.fused_tile_preprocess_plain(raw, offs, **kw))
     # bytes: the raw pixels under each tile's taps, the offsets, the output
-    ry_idx, _, rx_idx, _ = (t.cpu().numpy() for t in ftp._device_tables(
+    ry_idx, _, rx_idx, _ = (t.cpu().numpy() for t in fp.device_tables(
         RAW, RAW, kw["resize"], crop, None, None, str(dev))[:4])
     n_bytes = 0
     for oy, ox in offs.cpu().numpy():
@@ -235,6 +252,154 @@ def _leaves(tree):
     return [tree]
 
 
+# -- phase 3d: full-image (staged) ingest ----------------------------------
+def phase_preprocess(dev, rng):
+    import torch
+    from repro_torch.core import tiling
+    from repro_torch.kernels import fused_preprocess as fp
+    from repro_torch.kernels import fused_tile_preprocess as ftp
+    crop, l = FULL["img_size"], FULL["tile"]
+    # (b, raw, resize, crop, tile): the main path's shape first, then
+    # b=1, a ragged 5 and the two scaling geometries (at the default
+    # one the resize is the identity, every weight 0 or 1)
+    cases = [(32, RAW, FULL["resize_src"], crop, l), (1, RAW, 288, 256, 64),
+             (5, RAW, 288, 256, 64), (5, 400, 288, 256, 64),
+             (5, 64, 40, 32, 16)]
+    err, main = 0.0, None
+    for b, raw_hw, resize, cr, tl in cases:
+        raw = torch.as_tensor(rng.integers(0, 256, (b, raw_hw, raw_hw, 3),
+                                           dtype=np.uint8)).to(dev)
+        kw = dict(resize=resize, crop=cr)
+        got = fp.fused_preprocess_cuda(raw, **kw)
+        want = fp.fused_preprocess_plain(raw, **kw)
+        offs = rng.integers(0, cr // tl, (b, 2)) * tl
+        offs[0], offs[-1] = (0, 0), (cr - tl, cr - tl)
+        offs = torch.as_tensor(offs.astype(np.int32)).to(dev)
+        staged = tiling.extract_tiles(got, offs, tl)
+        first = ftp.fused_tile_preprocess_cuda(raw, offs, tile=tl, **kw)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        check(got.shape == want.shape and e <= INGEST_ATOL,
+              f"preprocess b={b} raw={raw_hw} resize={resize}: max |err| "
+              f"{e} > {INGEST_ATOL}")
+        check(torch.equal(staged, first),
+              f"staged tiles differ from tile-first tiles (b={b} "
+              f"raw={raw_hw} resize={resize})")
+        err = max(err, e)
+        if main is None:
+            main = (raw, kw)
+    raw, kw = main
+    times = timings(lambda: fp.fused_preprocess_cuda(raw, **kw),
+                    lambda: fp.fused_preprocess_plain(raw, **kw))
+    # bytes: the raw pixels under the taps (each read once), the output
+    ry_idx, _, rx_idx, _ = (t.cpu().numpy() for t in fp.device_tables(
+        RAW, RAW, kw["resize"], crop, None, None, str(dev))[:4])
+    b = raw.shape[0]
+    n_out = b * crop * crop * 3
+    n_bytes = 3 * b * np.unique(ry_idx).size * np.unique(rx_idx).size + \
+        4 * n_out
+    bound_ms, by = bound(n_bytes, 12 * n_out, PEAK_FP32_S)
+    print("preprocess: staged tiles equal tile-first tiles exactly at "
+          "every geometry")
+    return dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by,
+                library_ms=None, **times)
+
+
+# -- phase 3e: blocked decode schedules + autotune --------------------------
+SERVE_SCHEDULE = "bb4-ct32-db"   # the explicit blocked point the serve
+                                 # phase runs and the kernels line times
+# explicit points outside the sweep: narrower channel tiles and a batch
+# block that leaves ragged blocks at b=32
+EXTRA_SCHEDULES = ("bb2-ct16", "bb3-ct8-db", "bb1-ct4")
+
+
+def phase_blocked(dev, rng, card: str):
+    """Every candidate schedule (and the extra points) at b=32 and a
+    ragged b=5: the blocked kernel against its plain version on the same
+    tiles (logits and embedding within the logit tolerance) and bitwise
+    against the flat kernel; call ms of each at b=32."""
+    import torch
+    from repro_torch.core.extractor import (init_extractor_numpy,
+                                            pack_params, params_from_numpy)
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import fused_extractor as fx
+    l = FULL["tile"]
+    pk = pack_params(params_from_numpy(init_extractor_numpy(
+        1, tile=l, bias_scale=0.1, **WIDTH), dev))
+    cands = at.candidate_schedules(32, WIDTH["channels"], "cuda")
+    scheds = cands + [at.Schedule.from_string(s) for s in EXTRA_SCHEDULES]
+    sched_ms, err = {}, 0.0
+    for b in (32, 5):
+        tiles = torch.as_tensor(rng.uniform(-2.0, 2.5, (b, l, l, 3)).astype(
+            np.float32)).to(dev)
+        flat = fx.fused_extractor_cuda(tiles, pk, with_embed=True)
+        for sc in scheds:
+            kw = dict(batch_block=sc.batch_block,
+                      channel_tile=sc.channel_tile,
+                      double_buffer=sc.double_buffer)
+            got = fx.fused_extractor_blocked_cuda(tiles, pk, with_embed=True,
+                                                  **kw)
+            want = fx.fused_extractor_blocked_plain(tiles, pk,
+                                                    with_embed=True, **kw)
+            torch.cuda.synchronize()
+            for what, g, w in zip(("logits", "embed"), got, want):
+                w = w.cpu().numpy()
+                e = float(np.abs(g.cpu().numpy() - w).max())
+                check(g.shape == w.shape and np.isfinite(e) and
+                      e <= logit_tol(w),
+                      f"blocked {sc.to_string()} b={b} {what}: max |err| "
+                      f"{e} vs plain > {logit_tol(w)}")
+                err = max(err, e)
+            check(torch.equal(got[0], flat[0]) and
+                  torch.equal(got[1], flat[1]),
+                  f"blocked {sc.to_string()} b={b} differs from flat")
+            if b == 32:
+                sched_ms[sc.to_string()] = call_ms(
+                    lambda: fx.fused_extractor_blocked_cuda(tiles, pk,
+                                                            **kw))
+        if b == 32:
+            main = tiles
+            sched_ms["flat"] = call_ms(
+                lambda: fx.fused_extractor_cuda(tiles, pk))
+    print(f"blocked: every candidate ({len(cands)}) and "
+          f"{', '.join(EXTRA_SCHEDULES)} within {err:.3g} of the plain "
+          f"version and bitwise equal to flat at b=32 and b=5; call ms at "
+          f"b=32 on {card}:")
+    for name, ms in sorted(sched_ms.items(), key=lambda kv: kv[1]):
+        print(f"  {name:<14} {ms:.4f} ms")
+    sc = at.Schedule.from_string(SERVE_SCHEDULE)
+    kw = dict(batch_block=sc.batch_block, channel_tile=sc.channel_tile,
+              double_buffer=sc.double_buffer)
+    tiles = main
+    times = dict(ms=sched_ms[SERVE_SCHEDULE], plain_ms=call_ms(
+        lambda: fx.fused_extractor_blocked_plain(tiles, pk, **kw), 5))
+    n_bytes = 4 * (tiles.numel() + sum(
+        t.numel() for t in _leaves(pk)) + tiles.shape[0] * 60)
+    bound_ms, by = bound(n_bytes, extractor_flops(pk, tiles.shape[0], l),
+                         PEAK_FP32_S)
+    # autotune: a fresh sweep into the smoke's cache, then "auto" must
+    # resolve from it without the flat-fallback hint
+    cache = OUT / "decode_schedules.json"
+    cache.unlink(missing_ok=True)
+    winner = at.autotune(pk, tile=l, batch=32, dtype="fp32",
+                         cache_path=cache, iters=5, warmup=2)
+    name = "flat" if winner is None else winner.to_string()
+    hint = io.StringIO()
+    with contextlib.redirect_stderr(hint):
+        got = at.resolve_schedule("auto", dtype="fp32", tile=l,
+                                  channels=WIDTH["channels"],
+                                  depth=WIDTH["depth"],
+                                  n_bits=WIDTH["n_bits"], cache_path=cache,
+                                  device=dev)
+    check(hint.getvalue() == "" and got == winner,
+          f"auto did not resolve from the cache: {got} / {hint.getvalue()}")
+    print(f"autotune: winner {name} (cache {cache.relative_to(ROOT)}); "
+          f"auto resolves to it from the cache")
+    return dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by,
+                library_ms=None, schedules_ms=sched_ms, winner=name,
+                **times), cache, winner
+
+
 # -- phase 3c: RS decode ---------------------------------------------------
 def rs_words(rng, n_each: int) -> np.ndarray:
     """Codewords with 0, 1 and 2 symbol errors, and uniform words."""
@@ -307,8 +472,11 @@ def phase_end_to_end(card: str):
     rep, results = serve_lib.serve(pipe, batches)
     counts = ops.launch_counts()
     print(f"end-to-end: launches {json.dumps(counts)}")
-    check(all(c > 0 for c in counts.values()),
-          f"a kernel of the main path was never launched: {counts}")
+    main_path = ("fused_tile_preprocess", "fused_extractor", "rs_decode")
+    check(all(counts[k] == len(batches) for k in main_path) and
+          sum(counts.values()) == len(batches) * len(main_path),
+          f"the default path did not launch its three kernels once per "
+          f"batch: {counts}")
     check(rep.images == 96, f"served {rep.images} images, expected 96")
     for r in results:
         check(r["logits"].shape == (32, 60) and
@@ -338,7 +506,7 @@ def phase_end_to_end(card: str):
           f"{rep.throughput_ips:.1f} images/s on {card} (3 batches of 32, "
           f"tile 64, img 256, raw 288, C=64 D=7; "
           f"{int(margined.sum())}/32 margined rows exact vs plain replay)")
-    return counts, pipe, batches
+    return counts, pipe, batches, results
 
 
 def phase_throughput(pipe, batches, card: str, windows: int = 3,
@@ -357,11 +525,11 @@ def phase_throughput(pipe, batches, card: str, windows: int = 3,
     return ips
 
 
-def profile_path(pipe, batches, card: str):
+def profile_path(pipe, batches, card: str, name: str = "serve"):
     """One more pass over the batches under ``torch.profiler``: device
     busy time by kernel against the wall time (the profiler's own host
     cost inflates the wall, so the idle share is an upper bound).  The
-    trace goes to build/chip_smoke/serve_trace.json."""
+    trace goes to build/chip_smoke/<name>_trace.json."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -375,16 +543,115 @@ def profile_path(pipe, batches, card: str):
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    prof.export_chrome_trace(str(OUT / "serve_trace.json"))
+    prof.export_chrome_trace(str(OUT / f"{name}_trace.json"))
     if busy_ms == 0:
-        print("profile: the profiler saw no device time (not measured)")
+        print(f"profile {name}: the profiler saw no device time "
+              f"(not measured)")
         return
-    print(f"profile: {len(batches)} batches, wall {wall_ms:.3f} ms, device "
+    print(f"profile {name}: {len(batches)} batches, wall {wall_ms:.3f} ms, "
+          f"device "
           f"busy {busy_ms:.3f} ms, idle share <= "
           f"{1 - busy_ms / wall_ms:.3f} on {card}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
+
+
+# -- phase 5: the other configurations through the serve launcher ---------
+def serve_config(flags, batches, card: str, profile: str = ""):
+    """Build the launcher's pipeline for ``flags`` at full width, warm it
+    up, zero the counters, serve ``batches``; return (report, results,
+    launch counts).  With ``profile``, one more pass runs under the
+    profiler (device time by kernel) after the counted one."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    args = serve_lib.parse_args(["--batch", "32", "--img", "256",
+                                 "--tile", "64", "--device", "cuda",
+                                 *flags])
+    pipe = serve_lib.build_pipeline(args)
+    try:
+        sample, _ = serve_lib.make_batches(args)
+        serve_lib.warm_up(pipe, sample)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rep, results = serve_lib.serve(pipe, batches)
+        counts = ops.launch_counts()
+        if profile:
+            profile_path(pipe, batches, card, profile)
+    finally:
+        pipe.close()
+    print(f"serve {' '.join(flags)}: {rep.images} images in "
+          f"{rep.wall_s:.4f} s = {rep.throughput_ips:.1f} images/s on "
+          f"{card}; launches {json.dumps(counts)}")
+    return rep, results, counts
+
+
+def phase_configs(batches, default_results, default_ips, cache, winner,
+                  card: str):
+    """Each configuration of the second slice on the default path's 3
+    batches of 32: launch counts per batch, and its results against the
+    default path's (the same keys: batch k of each stream).
+    ``default_ips`` is the default path's median window (images/s), the
+    qrmark side of the ratios to the sequential baseline."""
+    n = len(batches)
+    zero = dict(fused_tile_preprocess=0, fused_preprocess=0,
+                fused_extractor=0, fused_extractor_blocked=0, rs_decode=0)
+    auto_kernel = ("fused_extractor" if winner is None
+                   else "fused_extractor_blocked")
+    configs = [
+        ("staged", ["--staged-ingest"],
+         dict(fused_preprocess=n, fused_extractor=n, rs_decode=n), "exact"),
+        ("auto", ["--schedule", "auto", "--autotune-cache", str(cache)],
+         {"fused_tile_preprocess": n, auto_kernel: n, "rs_decode": n},
+         "exact"),
+        ("blocked", ["--schedule", SERVE_SCHEDULE],
+         dict(fused_tile_preprocess=n, fused_extractor_blocked=n,
+              rs_decode=n), "exact"),
+        ("cpu_pool", ["--rs-mode", "cpu_pool"],
+         dict(fused_tile_preprocess=n, fused_extractor=n), "host-rs"),
+        ("tiled", ["--mode", "tiled"], dict(rs_decode=n), None),
+        ("sequential", ["--mode", "sequential", "--rs-mode", "cpu_sync"],
+         {}, None),
+        # the paper's baseline decode with the device RS, to split the
+        # baseline's time between its decode and its host RS
+        ("sequential-device", ["--mode", "sequential"], dict(rs_decode=n),
+         None),
+    ]
+    out = {}
+    for name, flags, want, relation in configs:
+        rep, results, counts = serve_config(
+            flags, batches, card,
+            profile=name if name in ("staged", "blocked",
+                                     "sequential-device") else "")
+        check(counts == {**zero, **want},
+              f"{name}: launches {counts}, expected {({**zero, **want})}")
+        check(rep.images == 32 * n, f"{name}: served {rep.images} images")
+        for r, d in zip(results, default_results):
+            check(r["logits"].shape == (32, 60) and
+                  np.isfinite(r["logits"]).all(), f"{name}: bad logits")
+            if relation == "exact":
+                for k in ("logits", "message_bits", "ok", "n_corrected"):
+                    check(np.array_equal(r[k], d[k]),
+                          f"{name}: {k} differs from the tile-first path")
+            elif relation == "host-rs":
+                check(np.array_equal(r["logits"], d["logits"]) and
+                      np.array_equal(r["ok"], d["ok"]) and
+                      not r["n_corrected"].any(),
+                      f"{name}: differs from the device-RS path")
+                ok = d["ok"]
+                check(np.array_equal(r["message_bits"][ok],
+                                     d["message_bits"][ok]),
+                      f"{name}: messages differ where ok")
+        out[name] = dict(images_per_s=rep.throughput_ips, launches=counts,
+                         flags=flags)
+    for name in ("sequential", "sequential-device"):
+        ips = out[name]["images_per_s"]
+        print(f"qrmark {default_ips:.1f} images/s (median of the 102-batch "
+              f"windows) vs {name} {ips:.1f} images/s (3 batches) = "
+              f"{default_ips / ips:.2f}x, batches of 32 at full width, on "
+              f"{card}")
+    return out
 
 
 # -- phase 5: golden JAX outputs ------------------------------------------
@@ -394,25 +661,34 @@ def phase_golden():
     from repro_torch.data.pipeline import synth_image
     g = np.load(GOLDEN)
     params = golden_params(int(g["seed"]), float(g["margin"]))
-    pipe = DetectionPipeline(DetectionConfig(**FULL), params, device="cuda")
     raw = np.stack([synth_image(int(i), RAW) for i in g["image_ids"]])
-    out = pipe.detect_batch(raw)            # key fold_in(key(0), 0)
-    keys = pipe.stages.image_keys(pipe.stages.batch_key(0), raw.shape[0])
-    offs = tiling.tile_first_offsets("random_grid", keys, img_size=256,
-                                     tile=64).numpy()
-    check((offs == g["offsets"]).all(), "golden offsets differ")
-    ref = g["logits"]
-    e = float(np.abs(out["logits"] - ref).max())
-    check(e <= logit_tol(ref), f"golden logits: max |err| {e}")
-    margined = np.abs(ref).min(axis=1) > 10 * logit_tol(ref)
-    check(margined.any(), "no margined golden row")
-    for k in ("message_bits", "ok", "n_corrected"):
-        check((out[k][margined] == g[k][margined]).all(),
-              f"golden {k} differs on a margined row")
-    print(f"golden: {int(margined.sum())}/{len(ref)} margined rows exact, "
-          f"logits max |err| {e:.3g} (tol {logit_tol(ref):.3g}), ok "
-          f"{out['ok'].astype(int).tolist()}, n_corrected "
-          f"{out['n_corrected'].tolist()}")
+    outs = {}
+    for prefix in ("", "staged_"):
+        pipe = DetectionPipeline(DetectionConfig(**FULL,
+                                                 tile_first=not prefix),
+                                 params, device="cuda")
+        out = pipe.detect_batch(raw)            # key fold_in(key(0), 0)
+        keys = pipe.stages.image_keys(pipe.stages.batch_key(0),
+                                      raw.shape[0])
+        offs = tiling.tile_first_offsets("random_grid", keys, img_size=256,
+                                         tile=64).numpy()
+        check((offs == g["offsets"]).all(), "golden offsets differ")
+        ref = g[prefix + "logits"]
+        e = float(np.abs(out["logits"] - ref).max())
+        check(e <= logit_tol(ref), f"golden {prefix}logits: max |err| {e}")
+        margined = np.abs(ref).min(axis=1) > 10 * logit_tol(ref)
+        check(margined.any(), "no margined golden row")
+        for k in ("message_bits", "ok", "n_corrected"):
+            check((out[k][margined] == g[prefix + k][margined]).all(),
+                  f"golden {prefix}{k} differs on a margined row")
+        print(f"golden {prefix or 'tile-first '}path: "
+              f"{int(margined.sum())}/{len(ref)} margined rows exact, "
+              f"logits max |err| {e:.3g} (tol {logit_tol(ref):.3g}), ok "
+              f"{out['ok'].astype(int).tolist()}, n_corrected "
+              f"{out['n_corrected'].tolist()}")
+        outs[prefix] = out
+    check(np.array_equal(outs[""]["logits"], outs["staged_"]["logits"]),
+          "golden: staged logits differ from tile-first logits on the card")
 
 
 def main() -> int:
@@ -447,16 +723,29 @@ def main() -> int:
     rng = np.random.default_rng(0)
     phases = {"fused_tile_preprocess": phase_ingest(dev, rng),
               "fused_extractor": phase_extractor(dev, rng),
-              "rs_decode": phase_rs(dev, rng)}
+              "rs_decode": phase_rs(dev, rng),
+              "fused_preprocess": phase_preprocess(dev, rng)}
+    phases["fused_extractor_blocked"], cache, winner = phase_blocked(
+        dev, rng, card)
     for name, r in phases.items():
         print(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.3g} ms ({r['bound_by']}), max |err| "
               f"{r['max_abs_err']:.3g}, batch 32, on {card}")
-    counts, pipe, batches = phase_end_to_end(card)
+    counts, pipe, batches, results = phase_end_to_end(card)
     window_ips = phase_throughput(pipe, batches, card)
     profile_path(pipe, batches, card)
+    configs = phase_configs(batches, results,
+                            statistics.median(window_ips), cache, winner,
+                            card)
     phase_golden()
 
+    # launches: each kernel's count on the path that runs it (the
+    # default path, or its own configuration's serve run)
+    launches = dict(counts)
+    launches["fused_preprocess"] = \
+        configs["staged"]["launches"]["fused_preprocess"]
+    launches["fused_extractor_blocked"] = \
+        configs["blocked"]["launches"]["fused_extractor_blocked"]
     meta = {
         "fused_tile_preprocess": (
             "src/repro_torch/kernels/csrc/tile_preprocess.cu",
@@ -466,16 +755,22 @@ def main() -> int:
             "src/repro/kernels/fused_extractor.py:82"),
         "rs_decode": ("src/repro_torch/kernels/csrc/rs_decode.cu",
                       "src/repro/kernels/rs_decode.py:202"),
+        "fused_preprocess": (
+            "src/repro_torch/kernels/csrc/tile_preprocess.cu",
+            "src/repro/kernels/fused_preprocess.py:63"),
+        "fused_extractor_blocked": (
+            "src/repro_torch/kernels/csrc/fused_extractor.cu",
+            "src/repro/kernels/fused_extractor.py:149"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": counts[name],
+                "replaces": rep, "launches": launches[name],
                 **{k: phases[name][k] for k in keys}}
                for name, (src, rep) in meta.items()]
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phases": phases,
-         "window_ips": window_ips}, indent=1))
+         "window_ips": window_ips, "configs": configs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

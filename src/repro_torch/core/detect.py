@@ -1,11 +1,23 @@
-"""End-to-end watermark detection pipeline, default path (counterpart of
+"""End-to-end watermark detection pipeline (counterpart of
 ``repro.core.detect``).
 
-:meth:`DetectionPipeline.detect_batch` runs the default
-``DetectionConfig`` — ``mode="qrmark"``, tile-first fused ingest, fused
-fp32 decode on the flat schedule, on-device RS, no escalation — through
-the registry's fused path (``StageRegistry.fused_keyed``): a raw uint8
-batch in, verified 48-bit keys out.
+:meth:`DetectionPipeline.detect_batch` takes a raw uint8 batch to
+verified 48-bit keys in one of three modes:
+
+* ``sequential`` — the paper's baseline: unfused preprocess, full-image
+  decode (plain ``extractor_forward``);
+* ``tiled`` — + per-image tile decode (naive tiling);
+* ``qrmark`` — tile-first fused ingest (or, with ``tile_first=False``,
+  the fused full-image ingest kernel then tile selection), the fused
+  fp32 decode kernel on the flat or a blocked schedule
+  (``decode_schedule``).
+
+RS runs on the card (``rs_mode="device"``), per row on the host
+(``cpu_sync``) or in a thread pool with a codebook (``cpu_pool``).
+qrmark with device RS goes through the registry's fused path
+(``StageRegistry.fused_keyed``); every other configuration through the
+staged one (ingest -> decode -> bits -> ``rs_correct``).  Escalation,
+the bf16/int8 rungs and the serving cache are not ported yet.
 
 The pipeline runs on the card by default: ``device=None`` means
 ``"cuda"``, and raises if no GPU is present.  ``device="cpu"`` runs the
@@ -21,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -33,10 +46,11 @@ from repro_torch.core.stages import StageRegistry
 @dataclasses.dataclass
 class DetectionConfig:
     """Configuration of the detection engines, with the reference's
-    fields, names and defaults.  This slice runs the defaults; any
-    other mode, ingest path, RS engine, code, dtype, schedule,
-    escalation or cache setting raises ``NotImplementedError`` when a
-    pipeline is built (see ``stages.check_config``)."""
+    fields, names and defaults.  Every mode, ingest path, RS engine and
+    fp32 decode schedule runs; a non-default code with device RS, a
+    bf16/int8 dtype, escalation or a serving-cache setting raises
+    ``NotImplementedError`` when a pipeline is built (see
+    ``stages.check_config``)."""
     tile: int = 64
     img_size: int = 256
     resize_src: int = 288          # raw -> resize -> centercrop(img_size)
@@ -87,13 +101,17 @@ class DetectionPipeline:
         self.gt = ground_truth_bits
         self.stages = StageRegistry(cfg, extractor_params, self.device)
         self._seq = 0                 # batch counter (keys)
+        self._stats_lock = threading.Lock()
+        self.stats: Dict[str, float] = {"batches": 0, "images": 0}
 
     def _finish(self, msg, ok, ncorr, logits) -> Dict[str, np.ndarray]:
-        """The sink: the single place device tensors become numpy."""
-        out = {"message_bits": msg.cpu().numpy(),
-               "ok": ok.cpu().numpy(),
-               "n_corrected": ncorr.cpu().numpy(),
-               "logits": logits.cpu().numpy()}
+        """The sink: the single place device tensors become numpy (the
+        host RS engines hand numpy already)."""
+        with self._stats_lock:
+            self.stats["batches"] += 1
+            self.stats["images"] += logits.shape[0]
+        out = {"message_bits": _numpy(msg), "ok": _numpy(ok),
+               "n_corrected": _numpy(ncorr), "logits": _numpy(logits)}
         if self.gt is not None:
             out["match"] = np.all(
                 out["message_bits"] == self.gt[None, : msg.shape[1]],
@@ -114,9 +132,22 @@ class DetectionPipeline:
             key = self.stages.batch_key(self._seq)
             self._seq += 1
         keys = self.stages.image_keys(key, b)
-        rs_out, logits = self.stages.fused_keyed(raw, keys)
-        return self._finish(rs_out["message_bits"], rs_out["ok"],
-                            rs_out["n_corrected"], logits)
+        if self.stages.fused_keyed is not None:
+            rs_out, logits = self.stages.fused_keyed(raw, keys)
+            return self._finish(rs_out["message_bits"], rs_out["ok"],
+                                rs_out["n_corrected"], logits)
+        x = self.stages.ingest_keyed(raw, keys)
+        logits = self.stages.decode_keyed(x, keys)
+        msg, ok, ncorr = self.stages.rs_correct(self.stages.bits(logits))
+        return self._finish(msg, ok, ncorr, logits)
+
+    def close(self):
+        """Stop the RS pool's threads (``rs_mode="cpu_pool"``)."""
+        self.stages.close()
+
+
+def _numpy(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def verify_against_key(message_bits: np.ndarray, key_bits: np.ndarray,

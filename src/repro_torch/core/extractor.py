@@ -151,15 +151,25 @@ def tap_dot(xs2d: torch.Tensor, w2d: torch.Tensor, tap: int,
     return xs2d @ w2d[tap * cin: (tap + 1) * cin]
 
 
-def conv3x3_mm(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+def conv3x3_mm(x: torch.Tensor, w2d: torch.Tensor,
+               channel_tile: int = 0) -> torch.Tensor:
     """SAME 3x3 conv as nine tap dots accumulated left to right:
-    x (b, h, w, c) x packed weight (9c, cout) -> (b*h*w, cout)."""
+    x (b, h, w, c) x packed weight (9c, cout) -> (b*h*w, cout).  With
+    ``channel_tile`` > 0 the output columns are computed in
+    [j0, j0 + channel_tile) slices, each from nine N-restricted tap
+    dots, as the reference's blocked schedule does (``_taps_fold``)."""
     b, h, w, c = x.shape
-    acc = None
-    for tap, xs in enumerate(_shifts3x3(x)):
-        y = tap_dot(xs.reshape(b * h * w, c), w2d, tap, c)
-        acc = y if acc is None else acc + y
-    return acc
+    cout = w2d.shape[-1]
+    ct = channel_tile or cout
+    cols = []
+    for j0 in range(0, cout, ct):
+        acc = None
+        for tap, xs in enumerate(_shifts3x3(x)):
+            y = tap_dot(xs.reshape(b * h * w, c), w2d[:, j0: j0 + ct], tap,
+                        c)
+            acc = y if acc is None else acc + y
+        cols.append(acc)
+    return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
 
 
 def _box3x3(x: torch.Tensor) -> torch.Tensor:
@@ -227,14 +237,16 @@ def unpack_params(packed: dict) -> dict:
     return p
 
 
-def extractor_forward_packed_embed(packed: dict, tiles: torch.Tensor):
+def extractor_forward_packed_embed(packed: dict, tiles: torch.Tensor,
+                                   channel_tile: int = 0):
     """tiles (b, l, l, 3) on packed fp32 params -> ((b, n_bits) logits,
     (b, n_bits) GAP embedding).  The correlation path runs only at the
-    bank's native tile size, as in the reference."""
+    bank's native tile size, as in the reference.  ``channel_tile``
+    slices the hidden convs' output columns (:func:`conv3x3_mm`)."""
     b, l = tiles.shape[0], tiles.shape[1]
     x = tiles
     for blk in packed["blocks"]:
-        y = conv3x3_mm(x, blk["w"])
+        y = conv3x3_mm(x, blk["w"], channel_tile)
         x = torch.relu(channel_norm(y.reshape(b, l, l, -1) + blk["b"]))
     y = conv3x3_mm(x, packed["to_bits"]["w"])
     y = y.reshape(b, l, l, -1) + packed["to_bits"]["b"]

@@ -17,6 +17,27 @@ from repro_torch.core import prng
 STRATEGIES = ("random", "random_grid", "fixed")
 
 
+def tile_offsets(strategy: str, key: torch.Tensor, image_hw, tile: int,
+                 batch: int) -> torch.Tensor:
+    """Per-image (y, x) offsets, (batch, 2) int32, from ONE batch-shaped
+    draw of ``key`` (a (2,) key), as the reference's ``tile_offsets``."""
+    H, W = image_hw
+    if strategy == "fixed":
+        return torch.zeros((batch, 2), dtype=torch.int32,
+                           device=key.device)
+    if strategy == "random":
+        ky, kx = prng.split(key, 2)
+        y = prng.randint(ky, (batch,), 0, H - tile + 1)
+        x = prng.randint(kx, (batch,), 0, W - tile + 1)
+        return torch.stack([y, x], dim=1).to(torch.int32)
+    if strategy == "random_grid":
+        gy, gx = H // tile, W // tile
+        k = prng.randint(key, (batch,), 0, gy * gx)
+        return torch.stack([(k // gx) * tile, (k % gx) * tile],
+                           dim=1).to(torch.int32)
+    raise ValueError(f"unknown tiling strategy {strategy!r}")
+
+
 def per_image_offsets(strategy: str, keys: torch.Tensor, image_hw,
                       tile: int) -> torch.Tensor:
     """Per-image (y, x) offsets, (b, 2) int32, from one key per image
@@ -58,3 +79,23 @@ def extract_tiles(images: torch.Tensor, offsets: torch.Tensor,
     cols = (offs[:, 1:2] + ar)[:, None, :]          # (b, 1, tile)
     bi = torch.arange(b, device=images.device)[:, None, None]
     return images[bi, rows, cols]
+
+
+def select_tiles(strategy: str, key: torch.Tensor, images: torch.Tensor,
+                 tile: int):
+    """One batch-shaped draw of offsets, then the tiles:
+    -> ((b, tile, tile, C) tiles, (b, 2) offsets)."""
+    b, H, W, _ = images.shape
+    offs = tile_offsets(strategy, key, (H, W), tile, b)
+    return extract_tiles(images, offs, tile), offs
+
+
+def select_tiles_per_image(strategy: str, keys: torch.Tensor,
+                           images: torch.Tensor, tile: int):
+    """Per-image-keyed :func:`select_tiles`: the staged ingest's tile
+    choice on the full preprocessed images.  The gather is plain tensor
+    indexing on the images' device (the reference slices with
+    ``lax.dynamic_slice`` outside any Pallas kernel)."""
+    _, H, W, _ = images.shape
+    offs = per_image_offsets(strategy, keys, (H, W), tile)
+    return extract_tiles(images, offs, tile), offs

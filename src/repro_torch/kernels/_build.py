@@ -38,7 +38,9 @@ _I = ctypes.c_int
 # cudaGetLastError() of its launch.
 SIGNATURES: Dict[str, List] = {
     "qr_tile_preprocess": [_P] * 9 + [_I] * 6 + [_P],
+    "qr_preprocess": [_P] * 8 + [_I] * 4 + [_P],
     "qr_conv3x3_norm_relu": [_P] * 4 + [_I] * 4 + [_P],
+    "qr_conv3x3_norm_relu_blocked": [_P] * 4 + [_I] * 7 + [_P],
     "qr_conv3x3_gap_corr": [_P] * 7 + [_I] * 5 + [_P],
     "qr_extractor_head": [_P] * 7 + [_I] * 4 + [_P],
     "qr_rs_decode": [_P] * 5 + [_I] + [_P],
@@ -48,7 +50,8 @@ SIGNATURES: Dict[str, List] = {
 # its kernel, and nowhere else (a CPU tensor takes the plain version and
 # counts nothing).
 launch_counts: Dict[str, int] = {
-    "fused_tile_preprocess": 0, "fused_extractor": 0, "rs_decode": 0}
+    "fused_tile_preprocess": 0, "fused_preprocess": 0, "fused_extractor": 0,
+    "fused_extractor_blocked": 0, "rs_decode": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -32,6 +32,34 @@
 // partials per image in tile order and applies GAP scale, head and corr.
 // Every reduction has a fixed order, so a row's logits do not depend on
 // the batch it came in.
+//
+// Blocked schedule, `conv_blocked_kernel`: replaces the Pallas kernel
+// `fused_extractor_blocked` (src/repro/kernels/fused_extractor.py:149,
+// pallas_call at :257), the same forward re-blocked by a schedule (batch
+// block bb, output-channel tile ct, double_buffer) whose fp32 output is
+// bitwise the flat kernel's.  On the TPU the schedule sizes VMEM scratch
+// and grid steps; here it sizes what a block stages in shared memory.  A
+// block owns a 16x16 pixel tile (256 threads, one per pixel) of bb images
+// in turn.  For each output-channel tile [j0, j0 + ct) it stages the
+// weight slice of ALL nine taps once (9 * cin * ct floats) and reuses it
+// for the bb images: the flat kernel restages each tap's slice for every
+// 128-pixel tile of every image, and syncs between taps; this one runs the
+// nine taps of an image without a barrier.  With ct < C the (pixel, C)
+// pre-norm result lands in the output buffer, tile by tile, as the
+// reference's (M, C) accumulator scratch, and the bias + channel_norm +
+// ReLU epilogue then reads all C channels of the thread's own pixel back;
+// a thread reads only what it wrote, so no barrier is needed.  Fewer
+// channels per pass means fewer registers per thread.  `db` (with ct < C)
+// double-buffers the weight slices: the next channel tile's slice is
+// fetched with cp.async while the current one computes; with ct = C there
+// is one slice and db changes nothing.  A ragged batch (bb not dividing b)
+// masks the missing images of the last block: the reference computes
+// zero pad rows and slices them off, which leaves the real rows the same.
+// Bitwise equality with the flat kernel: every output channel keeps the
+// flat kernel's FFMA chain over input channels and the left fold over the
+// nine taps, and the epilogue sums over channels in channel order.  The
+// to_bits conv, GAP, correlation and head run the flat kernels (n_bits is
+// always one full-width tile, as in the reference).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,19 +68,29 @@ namespace {
 constexpr int TH = 8, TW = 16, NPIX = TH * TW;  // one thread per pixel
 constexpr int HH = TH + 2, HWD = TW + 2, NHALO = HH * HWD;
 
-// x (b, l, l, cin) NHWC -> s_in[ci * NHALO + hy * HWD + hx], zero outside.
-__device__ __forceinline__ void load_halo(const float* __restrict__ x,
-                                          float* s_in, long long img,
-                                          int y0, int x0, int l, int cin) {
+// x (b, l, l, cin) NHWC -> s_in[ci * NH + hy * (PW + 2) + hx] for the
+// (PH + 2) x (PW + 2) halo of the PH x PW pixel tile at (y0, x0), zero
+// outside the image.
+template <int PH, int PW>
+__device__ __forceinline__ void load_halo_t(const float* __restrict__ x,
+                                            float* s_in, long long img,
+                                            int y0, int x0, int l, int cin) {
+  constexpr int HW_ = PW + 2, NH = (PH + 2) * (PW + 2);
   const float* xi = x + img * l * l * cin;
-  for (int e = threadIdx.x; e < NHALO * cin; e += blockDim.x) {
+  for (int e = threadIdx.x; e < NH * cin; e += blockDim.x) {
     const int ci = e % cin, p = e / cin;
-    const int gy = y0 + p / HWD - 1, gx = x0 + p % HWD - 1;
+    const int gy = y0 + p / HW_ - 1, gx = x0 + p % HW_ - 1;
     float v = 0.f;
     if (gy >= 0 && gy < l && gx >= 0 && gx < l)
       v = xi[((long long)gy * l + gx) * cin + ci];
-    s_in[ci * NHALO + p] = v;
+    s_in[ci * NH + p] = v;
   }
+}
+
+__device__ __forceinline__ void load_halo(const float* __restrict__ x,
+                                          float* s_in, long long img,
+                                          int y0, int x0, int l, int cin) {
+  load_halo_t<TH, TW>(x, s_in, img, y0, x0, l, cin);
 }
 
 // The nine tap dots of a SAME 3x3 conv at this thread's pixel, folded
@@ -94,6 +132,40 @@ __device__ __forceinline__ void conv_taps(const float* __restrict__ w,
   }
 }
 
+// The hidden block's epilogue on one pixel: + bias, channel_norm
+// (population variance, sums in channel order), ReLU, stored as float4 to
+// o (COUT contiguous floats).  pre(co) is the pixel's pre-norm conv output
+// of channel co: the thread's registers, or (blocked, ct < C) what the
+// thread wrote to o one channel tile at a time, overwritten in place.  One
+// body for both keeps the flat and the blocked kernels bitwise equal.
+template <int COUT, class Pre>
+__device__ __forceinline__ void norm_relu(Pre pre,
+                                          const float* __restrict__ bias,
+                                          float* o) {
+  float sum = 0.f;
+#pragma unroll
+  for (int co = 0; co < COUT; ++co)
+    sum = __fadd_rn(sum, __fadd_rn(pre(co), bias[co]));
+  const float mu = __fdiv_rn(sum, (float)COUT);
+  float ss = 0.f;
+#pragma unroll
+  for (int co = 0; co < COUT; ++co) {
+    const float d = __fsub_rn(__fadd_rn(pre(co), bias[co]), mu);
+    ss = __fadd_rn(ss, __fmul_rn(d, d));
+  }
+  const float var = __fdiv_rn(ss, (float)COUT);
+  const float rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, 1e-5f)));
+  auto out = [&](int co) {
+    return fmaxf(__fmul_rn(__fsub_rn(__fadd_rn(pre(co), bias[co]), mu), rs),
+                 0.f);
+  };
+  float4* o4 = reinterpret_cast<float4*>(o);
+#pragma unroll
+  for (int q = 0; q < COUT / 4; ++q)
+    o4[q] = make_float4(out(4 * q), out(4 * q + 1), out(4 * q + 2),
+                        out(4 * q + 3));
+}
+
 // One hidden block: SAME 3x3 conv + bias + channel_norm + ReLU.
 template <int COUT>
 __global__ void __launch_bounds__(NPIX)
@@ -112,31 +184,146 @@ conv_norm_relu_kernel(const float* __restrict__ x,
   load_halo(x, s_in, img, y0, x0, l, cin);
   float acc[COUT];
   conv_taps<COUT>(w, s_in, s_w, cin, py, px, acc);
-  float sum = 0.f;
-#pragma unroll
-  for (int co = 0; co < COUT; ++co) {
-    acc[co] = __fadd_rn(acc[co], bias[co]);
-    sum = __fadd_rn(sum, acc[co]);
+  norm_relu<COUT>([&](int co) { return acc[co]; }, bias,
+                  out + ((img * l + y0 + py) * l + x0 + px) * COUT);
+}
+
+// ---- blocked schedule ------------------------------------------------------
+constexpr int BTH = 16, BTW = 16, BNPIX = BTH * BTW;  // one thread per pixel
+constexpr int BHWD = BTW + 2, BNHALO = (BTH + 2) * BHWD;
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Weight slice of channel tile jt, all nine taps: rows r of the packed
+// (9 * cin, COUT) weight, columns [jt * CT, (jt + 1) * CT) -> s_w[r * CT + c].
+template <int COUT, int CT>
+__device__ __forceinline__ void stage_weights(const float* __restrict__ w,
+                                              float* s_w, int cin, int jt,
+                                              bool async) {
+  const int n4 = 9 * cin * (CT / 4);
+  for (int e = threadIdx.x; e < n4; e += blockDim.x) {
+    const int r = e / (CT / 4), q = e % (CT / 4);
+    const float* src = w + (long long)r * COUT + jt * CT + 4 * q;
+    float* dst = s_w + r * CT + 4 * q;
+    if (async) {
+      cp_async16(dst, src);
+    } else {
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    }
   }
-  const float mu = __fdiv_rn(sum, (float)COUT);
-  float ss = 0.f;
+}
+
+// The nine tap dots of this thread's pixel for CT output channels, from
+// the staged slice s_w (9 * cin, CT): per tap an FFMA chain over input
+// channels into a fresh partial, folded left into acc in [ky, kx] order.
+template <int CT>
+__device__ __forceinline__ void conv9(const float* s_w, const float* s_in,
+                                      int cin, int py, int px,
+                                      float (&acc)[CT]) {
+  for (int tap = 0; tap < 9; ++tap) {
+    const float* sp = s_in + (py + tap / 3) * BHWD + (px + tap % 3);
+    const float* wt = s_w + tap * cin * CT;
+    float part[CT];
 #pragma unroll
-  for (int co = 0; co < COUT; ++co) {
-    const float d = __fsub_rn(acc[co], mu);
-    ss = __fadd_rn(ss, __fmul_rn(d, d));
+    for (int co = 0; co < CT; ++co) part[co] = 0.f;
+#pragma unroll 2
+    for (int ci = 0; ci < cin; ++ci) {
+      const float xv = sp[ci * BNHALO];
+      const float4* w4 = reinterpret_cast<const float4*>(wt + ci * CT);
+#pragma unroll
+      for (int q = 0; q < CT / 4; ++q) {
+        const float4 wv = w4[q];
+        part[4 * q + 0] = fmaf(xv, wv.x, part[4 * q + 0]);
+        part[4 * q + 1] = fmaf(xv, wv.y, part[4 * q + 1]);
+        part[4 * q + 2] = fmaf(xv, wv.z, part[4 * q + 2]);
+        part[4 * q + 3] = fmaf(xv, wv.w, part[4 * q + 3]);
+      }
+    }
+    if (tap == 0) {
+#pragma unroll
+      for (int co = 0; co < CT; ++co) acc[co] = part[co];
+    } else {
+#pragma unroll
+      for (int co = 0; co < CT; ++co) acc[co] = __fadd_rn(acc[co], part[co]);
+    }
   }
-  const float var = __fdiv_rn(ss, (float)COUT);
-  const float rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, 1e-5f)));
-  float4* o4 = reinterpret_cast<float4*>(
-      out + ((img * l + y0 + py) * l + x0 + px) * COUT);
+}
+
+// One hidden block on the blocked schedule (see the header): grid
+// (ceil(b / bb) * tiles), 256 threads; dynamic shared memory holds one or
+// two weight slices of 9 * cin * CT floats and one halo of cin * BNHALO.
+template <int COUT, int CT>
+__global__ void __launch_bounds__(BNPIX)
+conv_blocked_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int b, int l, int cin, int bb, int db) {
+  constexpr int NT = COUT / CT;  // channel tiles
+  extern __shared__ float4 smem4[];
+  const int wsz = 9 * cin * CT;
+  const bool two = db && NT > 1;
+  float* s_w0 = reinterpret_cast<float*>(smem4);
+  float* s_in = s_w0 + (two ? 2 : 1) * wsz;
+  const int tiles_x = l / BTW, tiles = (l / BTH) * tiles_x;
+  const int img0 = (blockIdx.x / tiles) * bb;
+  const int t = blockIdx.x % tiles;
+  const int y0 = (t / tiles_x) * BTH, x0 = (t % tiles_x) * BTW;
+  const int py = threadIdx.x / BTW, px = threadIdx.x % BTW;
+  const int nimg = min(bb, b - img0);
+  if (two) {
+    stage_weights<COUT, CT>(w, s_w0, cin, 0, true);
+    cp_async_commit();
+  }
+  for (int jt = 0; jt < NT; ++jt) {
+    float* s_w = s_w0 + (two ? (jt & 1) * wsz : 0);
+    __syncthreads();  // every thread is done with the buffer refilled next
+    if (two) {
+      if (jt + 1 < NT) {
+        stage_weights<COUT, CT>(w, s_w0 + ((jt + 1) & 1) * wsz, cin, jt + 1,
+                                true);
+        cp_async_commit();
+        cp_async_wait<1>();  // this tile's slice has landed
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      stage_weights<COUT, CT>(w, s_w, cin, jt, false);
+    }
+    for (int i = 0; i < nimg; ++i) {
+      const long long img = img0 + i;
+      __syncthreads();  // weights visible / previous image's halo consumed
+      load_halo_t<BTH, BTW>(x, s_in, img, y0, x0, l, cin);
+      __syncthreads();
+      float acc[CT];
+      conv9<CT>(s_w, s_in, cin, py, px, acc);
+      float* o = out + ((img * l + y0 + py) * l + x0 + px) * COUT;
+      if constexpr (NT == 1) {
+        norm_relu<CT>([&](int co) { return acc[co]; }, bias, o);
+      } else {
+        float4* o4 = reinterpret_cast<float4*>(o + jt * CT);
 #pragma unroll
-  for (int q = 0; q < COUT / 4; ++q) {
-    float4 v;
-    v.x = fmaxf(__fmul_rn(__fsub_rn(acc[4 * q + 0], mu), rs), 0.f);
-    v.y = fmaxf(__fmul_rn(__fsub_rn(acc[4 * q + 1], mu), rs), 0.f);
-    v.z = fmaxf(__fmul_rn(__fsub_rn(acc[4 * q + 2], mu), rs), 0.f);
-    v.w = fmaxf(__fmul_rn(__fsub_rn(acc[4 * q + 3], mu), rs), 0.f);
-    o4[q] = v;
+        for (int q = 0; q < CT / 4; ++q)
+          o4[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                              acc[4 * q + 3]);
+      }
+    }
+  }
+  if constexpr (NT > 1) {
+    for (int i = 0; i < nimg; ++i) {
+      const long long img = img0 + i;
+      float* o = out + ((img * l + y0 + py) * l + x0 + px) * COUT;
+      norm_relu<COUT>([o](int co) { return o[co]; }, bias, o);
+    }
   }
 }
 
@@ -274,6 +461,23 @@ int conv_gap_corr(const float* x, const float* w, const float* bias,
   return (int)cudaGetLastError();
 }
 
+template <int COUT, int CT>
+int conv_blocked(const float* x, const float* w, const float* bias,
+                 float* out, int b, int l, int cin, int bb, int db,
+                 cudaStream_t stream) {
+  const bool two = db && COUT / CT > 1;
+  const int blocks = (b + bb - 1) / bb * (l / BTH) * (l / BTW);
+  const size_t smem = sizeof(float) * ((two ? 2 : 1) * 9 * (size_t)cin * CT +
+                                       (size_t)BNHALO * cin);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_blocked_kernel<COUT, CT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  conv_blocked_kernel<COUT, CT><<<blocks, BNPIX, smem, stream>>>(
+      x, w, bias, out, b, l, cin, bb, db);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // cout in {16, 32, 64}; l a multiple of 16.  Returns cudaGetLastError().
@@ -320,4 +524,28 @@ extern "C" int qr_extractor_head(const void* part_gap, const void* part_corr,
       (const float*)corr_scale, (float*)logits, (float*)embed, l, tiles,
       has_corr);
   return (int)cudaGetLastError();
+}
+
+// Blocked schedule: cout in {16, 32, 64}, ct a multiple of 4 dividing cout,
+// bb >= 1, l a multiple of 16, w 16-byte aligned.  Returns
+// cudaGetLastError().
+extern "C" int qr_conv3x3_norm_relu_blocked(const void* x, const void* w,
+                                            const void* bias, void* out,
+                                            int b, int l, int cin, int cout,
+                                            int bb, int ct, int db,
+                                            void* stream) {
+  const float *xf = (const float*)x, *wf = (const float*)w,
+              *bf = (const float*)bias;
+  float* of = (float*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bb < 1) return (int)cudaErrorInvalidValue;
+#define QR_BLOCKED(CO, CTV)                                                \
+  if (cout == CO && ct == CTV)                                             \
+    return conv_blocked<CO, CTV>(xf, wf, bf, of, b, l, cin, bb, db, s);
+  QR_BLOCKED(16, 16) QR_BLOCKED(16, 8) QR_BLOCKED(16, 4)
+  QR_BLOCKED(32, 32) QR_BLOCKED(32, 16) QR_BLOCKED(32, 8) QR_BLOCKED(32, 4)
+  QR_BLOCKED(64, 64) QR_BLOCKED(64, 32) QR_BLOCKED(64, 16) QR_BLOCKED(64, 8)
+  QR_BLOCKED(64, 4)
+#undef QR_BLOCKED
+  return (int)cudaErrorInvalidValue;
 }

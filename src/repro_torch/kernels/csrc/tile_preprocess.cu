@@ -1,33 +1,63 @@
-// Tile-first fused ingest: raw uint8 -> Resize -> CenterCrop -> Normalize
-// -> tile extract, written straight to the (n, l, l, 3) decode input.
+// Fused ingest: raw uint8 -> Resize -> CenterCrop -> Normalize, either for
+// the selected tiles only (tile-first, `tile_preprocess_kernel`) or for the
+// whole (crop, crop) image (staged, `preprocess_kernel`).
 //
-// Replaces the Pallas kernel `fused_tile_preprocess`
-// (src/repro/kernels/fused_tile_preprocess.py:68, pallas_call at :99,
-// body `_kernel` :46, math `interp_affine` fused_preprocess.py:32).
-// There, each grid step runs two dense interpolation matmuls per channel,
-// scale_c * (Ry[y:y+l, :] @ img_c @ Rx[:, x:x+l]) + bias_c, because
-// gathers are slow on the TPU's vector unit.
+// `tile_preprocess_kernel` replaces the Pallas kernel `fused_tile_preprocess`
+// (src/repro/kernels/fused_tile_preprocess.py:68, pallas_call at :99, body
+// `_kernel` :46); `preprocess_kernel` replaces the Pallas kernel
+// `fused_preprocess` (src/repro/kernels/fused_preprocess.py:63, pallas_call
+// at :79, body `_kernel` :57).  Both share the math `interp_affine`
+// (fused_preprocess.py:32): per channel,
+// scale_c * (Ry @ img_c @ Rx) + bias_c, run on the TPU as dense
+// interpolation matmuls because gathers are slow on its vector unit.
 //
-// What bounds it on the H100: bytes.  Each output element costs four
-// byte loads (mostly L1/L2 hits), twelve flops and one 4-byte store, so the
-// kernel is bound by writing the output (~49 KB per 64x64 tile) and
-// reading the raw pixels under the tile.
+// What bounds them on the H100: bytes.  Each output element costs four
+// byte loads (mostly L1/L2 hits), twelve flops and one 4-byte store, so a
+// kernel is bound by writing its float32 output and reading the raw pixels
+// under it: at b = 32 and the default geometry the full-image kernel needs
+// the 6.3 MB of raw bytes under the crop and writes 25.2 MB.
 //
 // Design: Ry and Rx have at most two nonzeros per row (bilinear, edge
 // clamp), so the dense products become a gather with two taps per axis.
 // The host passes the (index, weight) pairs read off the very float32
 // matrices the reference builds (`resize_matrix`); an edge-clamp row whose
 // two taps were summed into one entry arrives as (i, i) with weights
-// (w, 0).  One thread per output element; the image index is t / k, so
-// the (b, k, 2) escalation form costs nothing extra.  The arithmetic keeps
-// the reference's order — vertical pass, horizontal pass, then
-// *scale + bias — with __fmul_rn/__fadd_rn so nvcc does not contract it
-// into FMAs.  Offsets are clamped to [0, crop - l] as lax.dynamic_slice
-// clamps them in the reference.
+// (w, 0).  One thread per output element.  Both kernels compute an output
+// pixel through the one device function `interp_pixel`, which keeps the
+// reference's order — vertical pass, horizontal pass, then *scale + bias —
+// with __fmul_rn/__fadd_rn so nvcc does not contract it into FMAs.  So the
+// staged image's pixel (row, col) is bit for bit the tile-first kernel's
+// pixel at the same (row, col): staged ingest followed by the tile gather
+// equals tile-first ingest exactly.  The tile kernel's image index is t / k,
+// so the (b, k, 2) escalation form costs nothing extra; its offsets are
+// clamped to [0, crop - l] as lax.dynamic_slice clamps them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// Output pixel (row, col), channel c, of one image `im` (H, W, 3) uint8.
+__device__ __forceinline__ float interp_pixel(
+    const uint8_t* __restrict__ im, int W, int row, int col, int c,
+    const int* __restrict__ ry_idx, const float* __restrict__ ry_w,
+    const int* __restrict__ rx_idx, const float* __restrict__ rx_w,
+    const float* __restrict__ scale, const float* __restrict__ bias) {
+  const int r0 = ry_idx[2 * row], r1 = ry_idx[2 * row + 1];
+  const float wr0 = ry_w[2 * row], wr1 = ry_w[2 * row + 1];
+  const int c0 = rx_idx[2 * col], c1 = rx_idx[2 * col + 1];
+  const float wc0 = rx_w[2 * col], wc1 = rx_w[2 * col + 1];
+  im += c;
+  const float p00 = (float)im[((long long)r0 * W + c0) * 3];
+  const float p10 = (float)im[((long long)r1 * W + c0) * 3];
+  const float p01 = (float)im[((long long)r0 * W + c1) * 3];
+  const float p11 = (float)im[((long long)r1 * W + c1) * 3];
+  // vertical pass (Ry @ img_c) at the two source columns
+  const float v0 = __fadd_rn(__fmul_rn(wr0, p00), __fmul_rn(wr1, p10));
+  const float v1 = __fadd_rn(__fmul_rn(wr0, p01), __fmul_rn(wr1, p11));
+  // horizontal pass (@ Rx), then the normalising affine
+  const float h = __fadd_rn(__fmul_rn(v0, wc0), __fmul_rn(v1, wc1));
+  return __fadd_rn(__fmul_rn(h, scale[c]), bias[c]);
+}
 
 __global__ void tile_preprocess_kernel(
     const uint8_t* __restrict__ raw, const int* __restrict__ offsets,
@@ -48,23 +78,35 @@ __global__ void tile_preprocess_kernel(
     const int max_off = crop - tile;
     const int oy = min(max(offsets[2 * t], 0), max_off);
     const int ox = min(max(offsets[2 * t + 1], 0), max_off);
-    const int row = oy + i, col = ox + j;
-    const int r0 = ry_idx[2 * row], r1 = ry_idx[2 * row + 1];
-    const float wr0 = ry_w[2 * row], wr1 = ry_w[2 * row + 1];
-    const int c0 = rx_idx[2 * col], c1 = rx_idx[2 * col + 1];
-    const float wc0 = rx_w[2 * col], wc1 = rx_w[2 * col + 1];
-    const uint8_t* im = raw + img * (long long)H * W * 3 + c;
-    const float p00 = (float)im[((long long)r0 * W + c0) * 3];
-    const float p10 = (float)im[((long long)r1 * W + c0) * 3];
-    const float p01 = (float)im[((long long)r0 * W + c1) * 3];
-    const float p11 = (float)im[((long long)r1 * W + c1) * 3];
-    // vertical pass (Ry @ img_c) at the two source columns
-    const float v0 = __fadd_rn(__fmul_rn(wr0, p00), __fmul_rn(wr1, p10));
-    const float v1 = __fadd_rn(__fmul_rn(wr0, p01), __fmul_rn(wr1, p11));
-    // horizontal pass (@ Rx), then the normalising affine
-    const float h = __fadd_rn(__fmul_rn(v0, wc0), __fmul_rn(v1, wc1));
-    out[idx] = __fadd_rn(__fmul_rn(h, scale[c]), bias[c]);
+    out[idx] = interp_pixel(raw + img * (long long)H * W * 3, W, oy + i,
+                            ox + j, c, ry_idx, ry_w, rx_idx, rx_w, scale,
+                            bias);
   }
+}
+
+__global__ void preprocess_kernel(
+    const uint8_t* __restrict__ raw, const int* __restrict__ ry_idx,
+    const float* __restrict__ ry_w, const int* __restrict__ rx_idx,
+    const float* __restrict__ rx_w, const float* __restrict__ scale,
+    const float* __restrict__ bias, float* __restrict__ out,
+    long long total, int H, int W, int crop) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += stride) {
+    const int c = (int)(idx % 3);
+    const long long pix = idx / 3;
+    const int col = (int)(pix % crop);
+    const int row = (int)((pix / crop) % crop);
+    const long long img = pix / ((long long)crop * crop);
+    out[idx] = interp_pixel(raw + img * (long long)H * W * 3, W, row, col,
+                            c, ry_idx, ry_w, rx_idx, rx_w, scale, bias);
+  }
+}
+
+unsigned grid_for(long long total, int threads) {
+  long long blocks = (total + threads - 1) / threads;
+  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
+  return (unsigned)blocks;
 }
 
 }  // namespace
@@ -75,14 +117,24 @@ extern "C" int qr_tile_preprocess(
     const void* scale, const void* bias, void* out, int n, int k, int H,
     int W, int tile, int crop, void* stream) {
   const long long total = (long long)n * tile * tile * 3;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  tile_preprocess_kernel<<<(unsigned)blocks, threads, 0,
+  tile_preprocess_kernel<<<grid_for(total, 256), 256, 0,
                            (cudaStream_t)stream>>>(
       (const uint8_t*)raw, (const int*)offsets, (const int*)ry_idx,
       (const float*)ry_w, (const int*)rx_idx, (const float*)rx_w,
       (const float*)scale, (const float*)bias, (float*)out, total, k, H, W,
       tile, crop);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qr_preprocess(
+    const void* raw, const void* ry_idx, const void* ry_w,
+    const void* rx_idx, const void* rx_w, const void* scale,
+    const void* bias, void* out, int b, int H, int W, int crop,
+    void* stream) {
+  const long long total = (long long)b * crop * crop * 3;
+  preprocess_kernel<<<grid_for(total, 256), 256, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)raw, (const int*)ry_idx, (const float*)ry_w,
+      (const int*)rx_idx, (const float*)rx_w, (const float*)scale,
+      (const float*)bias, (float*)out, total, H, W, crop);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-"""Fused extractor decode, flat schedule, fp32 (counterpart of
-``repro.kernels.fused_extractor.fused_extractor``).
+"""Fused extractor decode, fp32, on the flat schedule (counterpart of
+``repro.kernels.fused_extractor.fused_extractor``) and on a blocked
+schedule (``fused_extractor_blocked``).
 
 * :func:`fused_extractor_plain` — ``extractor_forward_packed_embed``,
   the reference body in PyTorch (nine ``reshape(M, c) @ w_tap``
@@ -12,7 +13,19 @@
   (one image's fp32 activation is 1 MiB at l=64, C=64, more than an
   SM's shared memory).
 
-Both return ``(logits, embed)`` with ``embed`` the (b, n_bits) GAP
+The blocked schedule (batch block ``bb``, output-channel tile ``ct``,
+``double_buffer``; see ``kernels/autotune.Schedule``):
+
+* :func:`fused_extractor_blocked_plain` — the reference's blocked body
+  in PyTorch: the batch zero-padded to a multiple of ``bb``, each block
+  of ``bb`` images through the packed body with the hidden convs'
+  output columns in ``ct`` slices, pad rows sliced off;
+* :func:`fused_extractor_blocked_cuda` — the blocked CUDA conv kernel
+  for the hidden blocks (``conv_blocked_kernel``), then the flat
+  to_bits and head kernels.  Its logits equal the flat kernel's bit
+  for bit on every schedule.
+
+All four return ``(logits, embed)`` with ``embed`` the (b, n_bits) GAP
 vector when ``with_embed``, else ``logits`` alone.
 """
 from __future__ import annotations
@@ -26,6 +39,9 @@ from repro_torch.kernels import _build
 HIDDEN_CHANNELS = (16, 32, 64)
 N_BITS = (60,)
 PIXEL_TILE = (8, 16)  # (rows, cols) of the pixel tile a block owns
+# blocked conv kernel: 16x16 pixel tiles, channel tiles that are
+# multiples of 4 dividing the hidden width (see blocked_channel_tiles)
+BLOCKED_PIXEL_TILE = 16
 
 
 def fused_extractor_plain(tiles: torch.Tensor, packed: dict, *,
@@ -86,6 +102,16 @@ def fused_extractor_cuda(tiles: torch.Tensor, packed: dict, *,
             x.data_ptr(), blk["w"].data_ptr(), blk["b"].data_ptr(),
             y.data_ptr(), b, l, cin, cout, stream))
         x, cin = y, cout
+    return _head(lib, tiles, x, cin, packed, with_embed, stream,
+                 "fused_extractor")
+
+
+def _head(lib, tiles, x, cin, packed, with_embed, stream, counter):
+    """The to_bits + GAP + correlation kernel and the head kernel on the
+    last hidden activation ``x``; counts one launch of ``counter``."""
+    b, l = tiles.shape[0], tiles.shape[1]
+    n_bits = packed["head"]["b"].shape[0]
+    dev = tiles.device
     n_tiles = (l // PIXEL_TILE[0]) * (l // PIXEL_TILE[1])
     has_corr = "corr" in packed and packed["corr"].shape[0] == l * l
     part_gap = torch.empty((b * n_tiles, n_bits), dtype=torch.float32,
@@ -106,5 +132,101 @@ def fused_extractor_cuda(tiles: torch.Tensor, packed: dict, *,
         corr_scale.data_ptr(), logits.data_ptr(),
         None if embed is None else embed.data_ptr(), b, l, n_bits,
         int(has_corr), stream))
-    _build.launch_counts["fused_extractor"] += 1
+    _build.launch_counts[counter] += 1
     return (logits, embed) if with_embed else logits
+
+
+def block_sizes(b: int, channels: int, batch_block: int,
+                channel_tile: int):
+    """(bb, ct) as the reference clamps them: bb in [1, b], ct = C when
+    ``channel_tile`` is 0, else min(channel_tile, C)."""
+    bb = max(1, min(batch_block, b))
+    ct = min(channel_tile, channels) if channel_tile else channels
+    return bb, ct
+
+
+def blocked_channel_tiles(channels: int) -> tuple:
+    """The channel tiles the blocked CUDA kernel is built for at hidden
+    width ``channels``: the multiples of 4 that divide it."""
+    return tuple(ct for ct in range(4, channels + 1, 4)
+                 if channels % ct == 0)
+
+
+def check_blocked_schedule(*, channels: int, tile: int,
+                           channel_tile: int):
+    """Raise ValueError, naming the limit, for a blocked schedule that
+    the CUDA kernel does not run at this width and tile size (the plain
+    version runs any)."""
+    if channels not in HIDDEN_CHANNELS:
+        raise ValueError(f"the blocked CUDA kernel takes hidden widths "
+                         f"{HIDDEN_CHANNELS}, got {channels}")
+    _, ct = block_sizes(1, channels, 1, channel_tile)
+    if ct not in blocked_channel_tiles(channels):
+        raise ValueError(
+            f"the blocked CUDA kernel takes channel tiles "
+            f"{blocked_channel_tiles(channels)} (0 = {channels}) at C="
+            f"{channels}: multiples of 4 that divide C; got ct"
+            f"{channel_tile}")
+    if tile % BLOCKED_PIXEL_TILE:
+        raise ValueError(f"tile size {tile} must be a multiple of "
+                         f"{BLOCKED_PIXEL_TILE} for the blocked kernel")
+
+
+def fused_extractor_blocked_plain(tiles: torch.Tensor, packed: dict, *,
+                                  batch_block: int = 1,
+                                  channel_tile: int = 0,
+                                  double_buffer: bool = True,
+                                  with_embed: bool = False):
+    """The blocked schedule's arithmetic: ragged batches zero-padded to
+    a multiple of ``bb``, each block through the packed body with
+    ``ct``-wide output-column slices, pad rows sliced off.
+    ``double_buffer`` changes no arithmetic."""
+    b = tiles.shape[0]
+    C = packed["blocks"][0]["w"].shape[-1]
+    bb, ct = block_sizes(b, C, batch_block, channel_tile)
+    pad = -b % bb
+    if pad:
+        tiles = torch.cat([tiles, tiles.new_zeros((pad,) + tiles.shape[1:])])
+    outs = [extractor_forward_packed_embed(packed, tiles[i: i + bb], ct)
+            for i in range(0, b + pad, bb)]
+    logits = torch.cat([o[0] for o in outs])[:b]
+    g = torch.cat([o[1] for o in outs])[:b]
+    return (logits, g) if with_embed else logits
+
+
+def fused_extractor_blocked_cuda(tiles: torch.Tensor, packed: dict, *,
+                                 batch_block: int = 1,
+                                 channel_tile: int = 0,
+                                 double_buffer: bool = True,
+                                 with_embed: bool = False):
+    """The blocked CUDA schedule: same contract as the plain version.
+    One call is one launch of the op (D + 2 kernel launches)."""
+    if tiles.device.type != "cuda":
+        raise ValueError("fused_extractor_blocked_cuda needs CUDA tiles")
+    _check_pack(tiles, packed)
+    b, l = tiles.shape[0], tiles.shape[1]
+    C = packed["blocks"][0]["w"].shape[-1]
+    bb, ct = block_sizes(b, C, batch_block, channel_tile)
+    check_blocked_schedule(channels=C, tile=l, channel_tile=channel_tile)
+    for blk in packed["blocks"]:
+        if blk["w"].shape[-1] != C or blk["w"].data_ptr() % 16:
+            raise ValueError("the blocked kernel takes one hidden width "
+                             "and 16-byte aligned packed weights")
+    n_bits = packed["head"]["b"].shape[0]
+    dev = tiles.device
+    if b == 0:
+        empty = torch.empty((0, n_bits), dtype=torch.float32, device=dev)
+        return (empty, empty.clone()) if with_embed else empty
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.library()
+    x, cin = tiles, 3
+    for blk in packed["blocks"]:
+        y = torch.empty((b, l, l, C), dtype=torch.float32, device=dev)
+        _build.check("qr_conv3x3_norm_relu_blocked",
+                     lib.qr_conv3x3_norm_relu_blocked(
+                         x.data_ptr(), blk["w"].data_ptr(),
+                         blk["b"].data_ptr(), y.data_ptr(), b, l, cin, C,
+                         bb, ct, int(double_buffer), stream))
+        x, cin = y, C
+    return _head(lib, tiles, x, cin, packed, with_embed, stream,
+                 "fused_extractor_blocked")

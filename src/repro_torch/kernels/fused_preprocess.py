@@ -1,17 +1,29 @@
-"""Interpolation helpers of the fused Resize -> CenterCrop -> Normalize
-ingest (counterpart of ``repro.kernels.fused_preprocess``).
+"""Fused Resize -> CenterCrop -> Normalize, full image (counterpart of
+``repro.kernels.fused_preprocess``), and the interpolation helpers it
+shares with the tile-first ingest (``fused_tile_preprocess.py``).
 
-Only the shared math is ported in this slice: the (crop, H) / (W, crop)
-interpolation matrices and the per-channel ``scale_c * (Ry @ img_c @
-Rx) + bias_c`` affine, which is the plain version of the tile-first
-ingest kernel (``fused_tile_preprocess.py``).  The full-image kernel
-(staged ingest, ``tile_first=False``) is not on the default path yet.
+The staged transform is two interpolation matmuls per channel,
+``full[c] = scale_c * (Ry @ img_c @ Rx) + bias_c``, with ``Ry``
+(crop, H) and ``Rx`` (W, crop) from ``ref.resize_matrix`` and the
+normalisation folded into a per-channel affine.
+
+* :func:`fused_preprocess_plain` — the JAX kernel's dense form
+  (``interp_affine`` on the whole matrices) in PyTorch;
+* :func:`fused_preprocess_cuda` — the hand-written CUDA kernel
+  (``csrc/tile_preprocess.cu``, ``preprocess_kernel``): the same
+  two-tap gather as the tile-first kernel, through the same device
+  function, so staged ingest followed by ``tiling.extract_tiles``
+  equals tile-first ingest bit for bit on the card.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
+from repro_torch.core.transforms import IMAGENET_MEAN, IMAGENET_STD
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import resize_matrix
 
 
@@ -36,3 +48,94 @@ def interp_matrices(H: int, W: int, *, resize: int, crop: int):
     ry = resize_matrix(H, resize, off, crop)          # (crop, H)
     rx = resize_matrix(W, resize, off, crop).T        # (W, crop)
     return ry, np.ascontiguousarray(rx)
+
+
+def affine(mean, std):
+    """Normalisation as a per-channel affine on raw bytes, float32 as
+    the reference computes it: scale = 1/(255*std), bias = -mean/std."""
+    mean = np.asarray(IMAGENET_MEAN if mean is None else mean, np.float32)
+    std = np.asarray(IMAGENET_STD if std is None else std, np.float32)
+    return (np.asarray(1.0 / (255.0 * std), np.float32),
+            np.asarray(-mean / std, np.float32))
+
+
+def taps(m: np.ndarray):
+    """(rows, n_in) interpolation matrix -> per-row (index, weight)
+    pairs of its nonzeros, ascending index.  A row with one nonzero (an
+    edge-clamp row whose two taps were summed into one entry, or an
+    exact-integer source position) gets (i, i) with weights (w, 0)."""
+    rows = m.shape[0]
+    idx = np.zeros((rows, 2), np.int32)
+    wgt = np.zeros((rows, 2), np.float32)
+    for o in range(rows):
+        nz = np.nonzero(m[o])[0]
+        if not 1 <= nz.size <= 2:
+            raise ValueError(f"interpolation row {o} has {nz.size} "
+                             f"nonzeros; the kernel takes 1 or 2")
+        idx[o, :nz.size] = nz
+        idx[o, nz.size:] = nz[0]
+        wgt[o, :nz.size] = m[o, nz]
+    return idx, wgt
+
+
+def hashable(a):
+    return None if a is None else tuple(
+        float(v) for v in np.asarray(a, np.float32))
+
+
+@functools.lru_cache(maxsize=16)
+def device_tables(H: int, W: int, resize: int, crop: int, mean, std,
+                  device: str):
+    """The ingest kernels' constant inputs on ``device``: row/column
+    taps of the (crop, H) / (W, crop) matrices and the normalising
+    affine."""
+    ry, rx = interp_matrices(H, W, resize=resize, crop=crop)
+    ry_idx, ry_w = taps(ry)
+    rx_idx, rx_w = taps(np.ascontiguousarray(rx.T))
+    scale, bias = affine(mean, std)
+    return tuple(torch.as_tensor(a, device=device) for a in
+                 (ry_idx, ry_w, rx_idx, rx_w, scale, bias))
+
+
+def check_raw(raw: torch.Tensor, crop: int, resize: int):
+    if raw.dim() != 4 or raw.shape[-1] != 3:
+        raise ValueError(f"raw must be (b, H, W, 3), got {tuple(raw.shape)}")
+    if crop > resize:
+        raise ValueError(f"crop {crop} exceeds resize {resize}")
+
+
+def fused_preprocess_plain(raw: torch.Tensor, *, resize: int, crop: int,
+                           mean=None, std=None) -> torch.Tensor:
+    """uint8 (b, H, W, 3) -> f32 (b, crop, crop, 3), as dense matmuls on
+    the interpolation matrices (the JAX kernel's arithmetic)."""
+    check_raw(raw, crop, resize)
+    b, H, W, _ = raw.shape
+    ry, rx = (torch.as_tensor(m, device=raw.device) for m in
+              interp_matrices(H, W, resize=resize, crop=crop))
+    scale, bias = (torch.as_tensor(a, device=raw.device)
+                   for a in affine(mean, std))
+    return interp_affine(raw.to(torch.float32), ry, rx, scale, bias)
+
+
+def fused_preprocess_cuda(raw: torch.Tensor, *, resize: int, crop: int,
+                          mean=None, std=None) -> torch.Tensor:
+    """The CUDA kernel: same contract as the plain version."""
+    check_raw(raw, crop, resize)
+    if raw.device.type != "cuda":
+        raise ValueError("fused_preprocess_cuda needs a CUDA raw batch")
+    if raw.dtype != torch.uint8 or not raw.is_contiguous():
+        raise TypeError(f"need a contiguous uint8 raw batch, got "
+                        f"{raw.dtype}")
+    b, H, W, _ = raw.shape
+    tables = device_tables(H, W, resize, crop, hashable(mean),
+                           hashable(std), str(raw.device))
+    out = torch.empty((b, crop, crop, 3), dtype=torch.float32,
+                      device=raw.device)
+    if b:
+        err = _build.library().qr_preprocess(
+            raw.data_ptr(), *(t.data_ptr() for t in tables),
+            out.data_ptr(), b, H, W, crop,
+            torch.cuda.current_stream(raw.device).cuda_stream)
+        _build.check("qr_preprocess", err)
+        _build.launch_counts["fused_preprocess"] += 1
+    return out

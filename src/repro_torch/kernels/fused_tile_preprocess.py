@@ -20,24 +20,12 @@ them in the reference.
 """
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
-from repro_torch.core.transforms import IMAGENET_MEAN, IMAGENET_STD
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_preprocess import (interp_affine,
+from repro_torch.kernels.fused_preprocess import (affine, device_tables,
+                                                  hashable, interp_affine,
                                                   interp_matrices)
-
-
-def _affine(mean, std):
-    """Normalisation as a per-channel affine on raw bytes, float32 as
-    the reference computes it: scale = 1/(255*std), bias = -mean/std."""
-    mean = np.asarray(IMAGENET_MEAN if mean is None else mean, np.float32)
-    std = np.asarray(IMAGENET_STD if std is None else std, np.float32)
-    return (np.asarray(1.0 / (255.0 * std), np.float32),
-            np.asarray(-mean / std, np.float32))
 
 
 def _check(raw: torch.Tensor, offsets: torch.Tensor, crop: int,
@@ -81,45 +69,8 @@ def fused_tile_preprocess_plain(raw: torch.Tensor, offsets: torch.Tensor,
                                        crop=crop, tile=tile)
     img = raw.to(torch.float32).repeat_interleave(k, dim=0)
     scale, bias = (torch.as_tensor(a, device=raw.device)
-                   for a in _affine(mean, std))
+                   for a in affine(mean, std))
     return interp_affine(img, ry_t, rx_t, scale, bias)
-
-
-def _taps(m: np.ndarray):
-    """(rows, n_in) interpolation matrix -> per-row (index, weight)
-    pairs of its nonzeros, ascending index.  A row with one nonzero (an
-    edge-clamp row whose two taps were summed into one entry, or an
-    exact-integer source position) gets (i, i) with weights (w, 0)."""
-    rows = m.shape[0]
-    idx = np.zeros((rows, 2), np.int32)
-    wgt = np.zeros((rows, 2), np.float32)
-    for o in range(rows):
-        nz = np.nonzero(m[o])[0]
-        if not 1 <= nz.size <= 2:
-            raise ValueError(f"interpolation row {o} has {nz.size} "
-                             f"nonzeros; the kernel takes 1 or 2")
-        idx[o, :nz.size] = nz
-        idx[o, nz.size:] = nz[0]
-        wgt[o, :nz.size] = m[o, nz]
-    return idx, wgt
-
-
-def _hashable(a):
-    return None if a is None else tuple(
-        float(v) for v in np.asarray(a, np.float32))
-
-
-@functools.lru_cache(maxsize=16)
-def _device_tables(H: int, W: int, resize: int, crop: int, mean, std,
-                   device: str):
-    """The kernel's constant inputs on ``device``: row/column taps of
-    the (crop, H) / (W, crop) matrices and the normalising affine."""
-    ry, rx = interp_matrices(H, W, resize=resize, crop=crop)
-    ry_idx, ry_w = _taps(ry)
-    rx_idx, rx_w = _taps(np.ascontiguousarray(rx.T))
-    scale, bias = _affine(mean, std)
-    return tuple(torch.as_tensor(a, device=device) for a in
-                 (ry_idx, ry_w, rx_idx, rx_w, scale, bias))
 
 
 def fused_tile_preprocess_cuda(raw: torch.Tensor, offsets: torch.Tensor,
@@ -138,8 +89,8 @@ def fused_tile_preprocess_cuda(raw: torch.Tensor, offsets: torch.Tensor,
     b, H, W, _ = raw.shape
     k = offsets.shape[1] if offsets.dim() == 3 else 1
     n = b * k
-    tables = _device_tables(H, W, resize, crop, _hashable(mean),
-                            _hashable(std), str(raw.device))
+    tables = device_tables(H, W, resize, crop, hashable(mean),
+                           hashable(std), str(raw.device))
     out = torch.empty((n, tile, tile, 3), dtype=torch.float32,
                       device=raw.device)
     if n:

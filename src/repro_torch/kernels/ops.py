@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.rs.codec import DEFAULT_CODE, RSCode
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_extractor as _fx
+from repro_torch.kernels import fused_preprocess as _fp
 from repro_torch.kernels import fused_tile_preprocess as _ftp
 from repro_torch.kernels import rs_decode as _rs
 
@@ -26,6 +27,15 @@ def _on_cpu(t: torch.Tensor, op: str) -> bool:
     if t.device.type == "cuda":
         return False
     raise ValueError(f"{op}: unsupported device {t.device}")
+
+
+def fused_preprocess(raw: torch.Tensor, *, resize: int = 256,
+                     crop: int = 256, mean=None, std=None) -> torch.Tensor:
+    """Fused Resize -> CenterCrop -> Normalize of the whole image:
+    uint8 (b, H, W, 3) -> f32 (b, crop, crop, 3)."""
+    fn = (_fp.fused_preprocess_plain if _on_cpu(raw, "fused_preprocess")
+          else _fp.fused_preprocess_cuda)
+    return fn(raw, resize=resize, crop=crop, mean=mean, std=std)
 
 
 def fused_tile_preprocess(raw: torch.Tensor, offsets: torch.Tensor, *,
@@ -41,13 +51,22 @@ def fused_tile_preprocess(raw: torch.Tensor, offsets: torch.Tensor, *,
               mean=mean, std=std)
 
 
-def fused_extractor(tiles: torch.Tensor, packed: dict, *,
+def fused_extractor(tiles: torch.Tensor, packed: dict, schedule=None,
                     with_embed: bool = False):
-    """Fused fp32 decode, flat schedule: tiles (b, l, l, 3) -> (b,
-    n_bits) logits, plus the GAP embedding when ``with_embed``."""
-    fn = (_fx.fused_extractor_plain if _on_cpu(tiles, "fused_extractor")
-          else _fx.fused_extractor_cuda)
-    return fn(tiles, packed, with_embed=with_embed)
+    """Fused fp32 decode: tiles (b, l, l, 3) -> (b, n_bits) logits, plus
+    the GAP embedding when ``with_embed``.  ``schedule`` None runs the
+    flat kernel; a ``kernels.autotune.Schedule`` (anything with
+    ``batch_block`` / ``channel_tile`` / ``double_buffer``) the blocked
+    one, whose logits are bitwise the flat kernel's on the card."""
+    cpu = _on_cpu(tiles, "fused_extractor")
+    if schedule is None:
+        fn = _fx.fused_extractor_plain if cpu else _fx.fused_extractor_cuda
+        return fn(tiles, packed, with_embed=with_embed)
+    fn = (_fx.fused_extractor_blocked_plain if cpu
+          else _fx.fused_extractor_blocked_cuda)
+    return fn(tiles, packed, batch_block=schedule.batch_block,
+              channel_tile=schedule.channel_tile,
+              double_buffer=schedule.double_buffer, with_embed=with_embed)
 
 
 def rs_decode(bits: torch.Tensor, *, code: RSCode = DEFAULT_CODE

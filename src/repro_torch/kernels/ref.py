@@ -1,6 +1,7 @@
-"""Host-side interpolation matrices shared by the ingest kernel and its
-plain version (counterpart of ``repro.kernels.ref``; the other oracles
-there are the JAX package's own)."""
+"""Host-side interpolation matrices shared by the ingest kernels and
+their plain versions (counterpart of ``repro.kernels.ref``; the plain
+versions beside each kernel are the port's oracles, the others there
+are the JAX package's own)."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,3 +26,4 @@ def resize_matrix(n_in: int, n_out: int, crop_off: int = 0,
         M[o, lo_c] += 1.0 - w
         M[o, hi_c] += w
     return M
+

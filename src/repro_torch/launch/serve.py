@@ -10,16 +10,27 @@ The geometry follows the reference launcher: tile ``--tile``, image
 (channels 64, depth 7, 60 bits) with the tile's correlation bank,
 randomly initialised from a fixed ``torch.Generator`` seed.
 
+The configuration flags carry the reference's meanings: ``--mode``
+(``sequential`` | ``tiled`` | ``qrmark``), ``--rs-mode`` (``device`` |
+``cpu_pool`` | ``cpu_sync``), ``--staged-ingest`` (full-image ingest,
+then tile selection), ``--unfused-decode`` (the plain extractor graph),
+``--schedule`` (``flat`` | ``auto`` | ``bb<N>-ct<N>[-db]``), and
+``--autotune`` (sweep the blocked schedules into the cache at
+``--autotune-cache`` before building the pipeline, then serve with
+``auto``).
+
 Runs on the card by default; ``--device cpu`` runs the plain versions.
 Flags of the reference launcher that need the lane executor,
-allocator, scheduler, online server, fleet, sharding or another
-configuration are rejected by argparse as unrecognized, never ignored.
-Prints a
-``ServiceReport``-shaped JSON object (``allocation`` and ``lanes``
-null: no lane allocation runs here).
+allocator, scheduler, online server, fleet, sharding, escalation,
+another precision or the serving cache are rejected by argparse as
+unrecognized, never ignored.  Prints a ``ServiceReport``-shaped JSON
+object (``allocation`` and ``lanes`` null: no lane allocation runs
+here).
 
     python -m repro_torch.launch.serve --batches 3 --batch 32 \
-        --img 256 --tile 64 [--ragged] [--device cuda|cpu]
+        --img 256 --tile 64 [--mode M] [--rs-mode R] [--staged-ingest] \
+        [--unfused-decode] [--schedule S] [--autotune] \
+        [--autotune-cache PATH] [--ragged] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -33,10 +44,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.detect import DetectionConfig, DetectionPipeline
-from repro_torch.core.extractor import init_extractor
+from repro_torch.core.detect import (DetectionConfig, DetectionPipeline,
+                                     resolve_device)
+from repro_torch.core.extractor import (init_extractor, pack_params,
+                                        params_from_numpy)
 from repro_torch.core.rs.codec import DEFAULT_CODE
 from repro_torch.data.pipeline import synth_image
+from repro_torch.kernels import autotune as autotune_lib
+
+DEFAULT_AUTOTUNE_CACHE = "experiments/autotune/decode_schedules.json"
 
 @dataclasses.dataclass
 class ServiceReport:
@@ -55,16 +71,37 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         description="Offline batch detection service on the PyTorch port",
         epilog="Flags of the reference launcher that need the lane "
                "executor, allocator, scheduler, online server, fleet, "
-               "sharding or another configuration are not ported yet "
-               "(ROADMAP.md queue 1 items 8-13) and are rejected as "
-               "unrecognized.",
+               "sharding, escalation, another precision or the serving "
+               "cache are not ported yet (ROADMAP.md queue 1 items 9-13) "
+               "and are rejected as unrecognized.",
         allow_abbrev=False)
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--img", type=int, default=128)
     ap.add_argument("--tile", type=int, default=32)
+    ap.add_argument("--mode", default="qrmark",
+                    choices=("sequential", "tiled", "qrmark"))
+    ap.add_argument("--rs-mode", default="device",
+                    choices=("device", "cpu_pool", "cpu_sync"))
     ap.add_argument("--ragged", action="store_true",
                     help="send odd-size batches")
+    ap.add_argument("--staged-ingest", action="store_true",
+                    help="disable tile-first ingest (full-image "
+                         "preprocess + tile select in decode)")
+    ap.add_argument("--unfused-decode", action="store_true",
+                    help="disable the fused extractor kernel (decode "
+                         "runs the plain extractor graph)")
+    ap.add_argument("--schedule", default="flat",
+                    help="decode kernel schedule: 'flat', 'auto' (winner "
+                         "from the autotune cache), or an explicit "
+                         "'bb<N>-ct<N>[-db]' point")
+    ap.add_argument("--autotune", action="store_true",
+                    help="sweep blocked decode schedules for this config "
+                         "before building the pipeline, persist the "
+                         "winner in the autotune cache, and serve with it "
+                         "(implies --schedule auto)")
+    ap.add_argument("--autotune-cache", default=DEFAULT_AUTOTUNE_CACHE,
+                    help="schedule-cache JSON path")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     return ap.parse_args(argv)
@@ -85,11 +122,26 @@ def make_batches(args) -> Tuple[np.ndarray, List[np.ndarray]]:
 
 
 def build_pipeline(args) -> DetectionPipeline:
-    cfg = DetectionConfig(tile=args.tile, img_size=args.img,
-                          resize_src=args.img + args.img // 8)
+    """The launcher's full-width extractor (random weights from a fixed
+    seed) and the configuration the flags name; ``--autotune`` first
+    sweeps the schedules into the cache on the pipeline's device."""
     params = init_extractor(torch.Generator().manual_seed(0),
                             n_bits=DEFAULT_CODE.codeword_bits,
                             tile=args.tile)
+    schedule = args.schedule
+    if args.autotune:
+        packed = pack_params(params_from_numpy(
+            params, resolve_device(args.device)), "fp32")
+        autotune_lib.autotune(packed, tile=args.tile, batch=args.batch,
+                              dtype="fp32", cache_path=args.autotune_cache)
+        schedule = "auto"
+    cfg = DetectionConfig(tile=args.tile, img_size=args.img,
+                          resize_src=args.img + args.img // 8,
+                          mode=args.mode, rs_mode=args.rs_mode,
+                          tile_first=not args.staged_ingest,
+                          fused_decode=not args.unfused_decode,
+                          decode_schedule=schedule,
+                          autotune_cache=args.autotune_cache)
     return DetectionPipeline(cfg, params, device=args.device)
 
 
@@ -119,6 +171,7 @@ def main(argv: Optional[List[str]] = None):
     sample, batches = make_batches(args)
     warm_up(pipe, sample)
     rep, _ = serve(pipe, batches)
+    pipe.close()
     print(json.dumps({**dataclasses.asdict(rep),
                       "device": str(pipe.device)}, indent=1))
 

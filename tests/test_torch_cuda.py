@@ -8,7 +8,10 @@ machine with only PyTorch:
 Tolerances: ingest 1e-5 absolute (a few float32 ulps on values in about
 [-2.2, 2.7]); extractor logits and embedding 1e-4 * (1 + max|ref|)
 (the kernel and cuBLAS accumulate the fp32 tap dots in other orders);
-RS outputs exactly equal.
+RS outputs exactly equal.  Between kernels of the port the contracts
+are exact: staged ingest (full-image kernel, then the tile gather)
+equals tile-first ingest, and the blocked decode kernel equals the flat
+one, bit for bit, on every candidate schedule.
 """
 import numpy as np
 import pytest
@@ -16,7 +19,10 @@ import torch
 
 from repro_torch.core import extractor as ex
 from repro_torch.core.rs import codec
+from repro_torch.core import tiling
+from repro_torch.kernels import autotune as at
 from repro_torch.kernels import fused_extractor as fx
+from repro_torch.kernels import fused_preprocess as fp
 from repro_torch.kernels import fused_tile_preprocess as ftp
 from repro_torch.kernels import ops
 from repro_torch.kernels import rs_decode as rs
@@ -126,3 +132,95 @@ def test_cuda_input_goes_to_the_kernels(dev):
     assert ops.launch_counts()["rs_decode"] == 1
     with pytest.raises(ValueError):
         ops.rs_decode(bits.to(torch.int64))  # the kernel takes int32 only
+
+
+GEOMS = [(64, 40, 32, 16), (50, 36, 32, 16), (288, 288, 256, 64),
+         (400, 288, 256, 64)]
+
+
+@pytest.mark.parametrize("raw_hw,resize,crop,tile", GEOMS)
+@pytest.mark.parametrize("b", [1, 5])
+def test_preprocess_kernel_matches_plain(dev, raw_hw, resize, crop, tile, b):
+    raw = torch.as_tensor(np.random.default_rng(raw_hw + b).integers(
+        0, 256, (b, raw_hw, raw_hw, 3), dtype=np.uint8)).to(dev)
+    got = fp.fused_preprocess_cuda(raw, resize=resize, crop=crop)
+    want = fp.fused_preprocess_plain(raw, resize=resize, crop=crop)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, crop, crop, 3)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=INGEST_ATOL)
+
+
+@pytest.mark.parametrize("raw_hw,resize,crop,tile", GEOMS)
+def test_staged_ingest_equals_tile_first_exactly(dev, raw_hw, resize, crop,
+                                                 tile):
+    rng = np.random.default_rng(raw_hw)
+    b = 5
+    raw = torch.as_tensor(rng.integers(0, 256, (b, raw_hw, raw_hw, 3),
+                                       dtype=np.uint8)).to(dev)
+    offs = rng.integers(0, crop - tile + 1, (b, 2))
+    offs[0], offs[-1] = (0, 0), (crop - tile, crop - tile)
+    offs = torch.as_tensor(offs.astype(np.int32)).to(dev)
+    staged = tiling.extract_tiles(
+        fp.fused_preprocess_cuda(raw, resize=resize, crop=crop), offs, tile)
+    first = ftp.fused_tile_preprocess_cuda(raw, offs, resize=resize,
+                                           crop=crop, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(staged, first)
+
+
+@pytest.mark.parametrize("b,l,channels,depth", [
+    (32, 64, 64, 7), (1, 64, 64, 7), (5, 64, 64, 7), (5, 16, 16, 3),
+    (3, 32, 32, 2)])
+def test_blocked_kernel_equals_flat_bitwise(dev, b, l, channels, depth):
+    pk = ex.pack_params(ex.params_from_numpy(ex.init_extractor_numpy(
+        0, n_bits=60, channels=channels, depth=depth, tile=l,
+        bias_scale=0.1), dev))
+    tiles = torch.as_tensor(np.random.default_rng(b).uniform(
+        -2.0, 2.5, (b, l, l, 3)).astype(np.float32)).to(dev)
+    flat = fx.fused_extractor_cuda(tiles, pk, with_embed=True)
+    for sc in at.candidate_schedules(max(b, 8), channels, "cuda"):
+        got = fx.fused_extractor_blocked_cuda(
+            tiles, pk, batch_block=sc.batch_block,
+            channel_tile=sc.channel_tile, double_buffer=sc.double_buffer,
+            with_embed=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], flat[0]), sc.to_string()
+        assert torch.equal(got[1], flat[1]), sc.to_string()
+
+
+@pytest.mark.parametrize("channels", [16, 32, 64])
+def test_blocked_kernel_every_channel_tile_equals_flat(dev, channels):
+    """Every channel tile the kernel is built for (multiples of 4 that
+    divide C), with and without double buffering, at a batch block that
+    leaves a ragged last block."""
+    pk = ex.pack_params(ex.params_from_numpy(ex.init_extractor_numpy(
+        0, n_bits=60, channels=channels, depth=2, tile=32,
+        bias_scale=0.1), dev))
+    tiles = torch.as_tensor(np.random.default_rng(channels).uniform(
+        -2.0, 2.5, (5, 32, 32, 3)).astype(np.float32)).to(dev)
+    flat = fx.fused_extractor_cuda(tiles, pk, with_embed=True)
+    for ct in fx.blocked_channel_tiles(channels):
+        for db in (True, False):
+            got = fx.fused_extractor_blocked_cuda(
+                tiles, pk, batch_block=2, channel_tile=ct, double_buffer=db,
+                with_embed=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], flat[0]), (ct, db)
+            assert torch.equal(got[1], flat[1]), (ct, db)
+
+
+def test_new_ops_count_their_launches(dev):
+    ops.reset_launch_counts()
+    raw = torch.zeros((2, 64, 64, 3), dtype=torch.uint8, device=dev)
+    ops.fused_preprocess(raw, resize=40, crop=32)
+    pk = ex.pack_params(ex.params_from_numpy(ex.init_extractor_numpy(
+        0, n_bits=60, channels=16, depth=2, tile=16), dev))
+    tiles = torch.zeros((2, 16, 16, 3), device=dev)
+    ops.fused_extractor(tiles, pk, schedule=at.Schedule(2, 8, True))
+    counts = ops.launch_counts()
+    assert counts["fused_preprocess"] == 1
+    assert counts["fused_extractor_blocked"] == 1
+    assert counts["fused_extractor"] == 0
+    with pytest.raises(ValueError, match="channel tiles"):
+        ops.fused_extractor(tiles, pk, schedule=at.Schedule(1, 12))

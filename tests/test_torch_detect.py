@@ -125,12 +125,17 @@ def test_rows_independent_of_batch():
         np.testing.assert_array_equal(part[k].numpy(), full[k][:3].numpy())
 
 
+_CODE11 = codec.RSCode(m=4, n=15, k=11)
+
+
 @pytest.mark.parametrize("knob,item", [
-    (dict(mode="tiled"), "item 8"), (dict(rs_mode="cpu_pool"), "item 8"),
-    (dict(tile_first=False), "item 8"), (dict(fused_decode=False), "item 8"),
-    (dict(code=codec.RSCode(m=4, n=15, k=11)), "item 8"),
+    (dict(mode="tiled", code=_CODE11), "item 8"),
+    (dict(mode="sequential", code=_CODE11), "item 8"),
+    (dict(tile_first=False, code=_CODE11), "item 8"),
+    (dict(fused_decode=False, code=_CODE11), "item 8"),
+    (dict(code=_CODE11), "item 8"),
     (dict(escalate_tiles=2), "item 9"), (dict(decode_dtype="bf16"), "item 10"),
-    (dict(decode_schedule="auto"), "item 10"),
+    (dict(decode_dtype="int8", decode_schedule="auto"), "item 10"),
     (dict(cache_exact=True), "item 13")])
 def test_unported_config_raises(knob, item):
     with pytest.raises(NotImplementedError, match=item):

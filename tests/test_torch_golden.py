@@ -1,5 +1,6 @@
-"""Golden outputs of the default detection path at full width, for the
-card: ``tests/data/torch_port_golden.npz``.
+"""Golden outputs of the default detection path, and of the staged
+qrmark path (``tile_first=False``), at full width, for the card:
+``tests/data/torch_port_golden.npz``.
 
 The JAX package's default path — tile-first ingest (Pallas kernel,
 interpret mode), the flat fp32 fused extractor (Pallas kernel,
@@ -11,8 +12,12 @@ the offline key of batch 0, ``fold_in(key(0), 0)``.  Weights come from
 stored in the file).  RS runs through ``repro.core.rs.jax_rs``, which
 the JAX package's own tests hold bit-equal to its Pallas RS kernel
 (tests/test_rs_kernel.py) and which compiles in a second instead of
-fifteen.  The file stores the offsets, logits, message_bits, ok and
-n_corrected.
+fifteen.  The staged path runs the JAX package's full-image
+``fused_preprocess`` kernel (interpret mode), picks the same tiles with
+``select_tiles_per_image`` and decodes them in the same extractor call
+as the tile-first tiles (rows are batch-independent).  The file stores
+the offsets, logits, message_bits, ok and n_corrected of both paths
+(the staged ones prefixed ``staged_``).
 
 Here the JAX outputs are recomputed and held to the file (so it cannot
 go stale) and the port's plain path at full width on the CPU is held to
@@ -70,14 +75,23 @@ def jax_golden(seed: int, margin: float, image_ids) -> dict:
                                        resize=full["resize_src"],
                                        crop=full["img_size"],
                                        tile=full["tile"])
-    logits = jops.fused_extractor(tiles, jex.pack_params(params))
-    rs = jax_rs.make_batch_decoder(JCODE)((logits > 0).astype(jnp.int32))
-    return {"seed": np.int64(seed), "margin": np.float64(margin),
-            "image_ids": np.asarray(image_ids), "offsets": np.asarray(offs),
-            "logits": np.asarray(logits),
-            "message_bits": np.asarray(rs["message_bits"]),
-            "ok": np.asarray(rs["ok"]),
-            "n_corrected": np.asarray(rs["n_corrected"])}
+    staged, _ = jtiling.select_tiles_per_image(
+        "random_grid", keys, jops.fused_preprocess(
+            raw, resize=full["resize_src"], crop=full["img_size"]),
+        full["tile"])
+    b = raw.shape[0]
+    both = jops.fused_extractor(jnp.concatenate([tiles, staged]),
+                                jex.pack_params(params))
+    out = {"seed": np.int64(seed), "margin": np.float64(margin),
+           "image_ids": np.asarray(image_ids), "offsets": np.asarray(offs)}
+    decode = jax_rs.make_batch_decoder(JCODE)
+    for prefix, logits in (("", both[:b]), ("staged_", both[b:])):
+        rs = decode((logits > 0).astype(jnp.int32))
+        out.update({prefix + "logits": np.asarray(logits),
+                    prefix + "message_bits": np.asarray(rs["message_bits"]),
+                    prefix + "ok": np.asarray(rs["ok"]),
+                    prefix + "n_corrected": np.asarray(rs["n_corrected"])})
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -89,20 +103,24 @@ def _tol(logits):
     return 1e-4 * (1.0 + float(np.abs(logits).max()))
 
 
-def _hold(out: dict, golden: dict):
-    ref = golden["logits"]
+def _hold(out: dict, golden: dict, prefix: str = ""):
+    """``out`` (unprefixed keys) against the golden ``prefix`` path."""
+    ref = golden[prefix + "logits"]
     np.testing.assert_allclose(out["logits"], ref, rtol=0, atol=_tol(ref))
     margined = np.abs(ref).min(axis=1) > 10 * _tol(ref)
     assert margined.all()
     for k in INT_FIELDS:
-        np.testing.assert_array_equal(out[k][margined], golden[k][margined])
+        np.testing.assert_array_equal(out[k][margined],
+                                      golden[prefix + k][margined])
 
 
 def test_golden_file_matches_jax_recompute(golden):
     assert int(golden["seed"]) == SEED and float(golden["margin"]) == MARGIN
     out = jax_golden(SEED, MARGIN, golden["image_ids"])
     np.testing.assert_array_equal(out["offsets"], golden["offsets"])
-    _hold(out, golden)
+    for prefix in ("", "staged_"):
+        _hold({k: out[prefix + k] for k in ("logits", *INT_FIELDS)},
+              golden, prefix)
 
 
 def test_golden_outcomes_are_mixed(golden):
@@ -110,9 +128,9 @@ def test_golden_outcomes_are_mixed(golden):
     assert set(golden["n_corrected"].tolist()) == {-1, 1}
 
 
-def test_port_plain_path_matches_golden_at_full_width(golden):
+def _port_plain_path(golden, prefix):
     pipe = DetectionPipeline(
-        DetectionConfig(**chip_smoke.FULL),
+        DetectionConfig(**chip_smoke.FULL, tile_first=not prefix),
         chip_smoke.golden_params(int(golden["seed"]),
                                  float(golden["margin"])), device="cpu")
     raw = np.stack([synth_image(int(i), chip_smoke.RAW)
@@ -123,7 +141,15 @@ def test_port_plain_path_matches_golden_at_full_width(golden):
     offs = tiling.tile_first_offsets("random_grid", keys, img_size=256,
                                      tile=64)
     np.testing.assert_array_equal(offs.numpy(), golden["offsets"])
-    _hold(out, golden)
+    _hold(out, golden, prefix)
+
+
+def test_port_plain_path_matches_golden_at_full_width(golden):
+    _port_plain_path(golden, "")
+
+
+def test_port_plain_staged_path_matches_golden_at_full_width(golden):
+    _port_plain_path(golden, "staged_")
 
 
 if __name__ == "__main__":

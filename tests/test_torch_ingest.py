@@ -19,7 +19,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import fused_tile_preprocess as ftp
+from repro_torch.kernels import fused_preprocess as fp
 from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(1)
@@ -82,7 +82,7 @@ def test_resize_matrix_and_taps_exact(n_in, n_out, crop):
     m = ref.resize_matrix(n_in, n_out, off, crop)
     np.testing.assert_array_equal(m, jref.resize_matrix(n_in, n_out, off,
                                                         crop))
-    idx, w = ftp._taps(m)
+    idx, w = fp.taps(m)
     rebuilt = np.zeros_like(m)
     for o in range(crop):
         for j in range(2):
@@ -96,7 +96,7 @@ def _gather_emulation(raw, offs, resize, crop, tile):
     and sum rounded separately (no FMA)."""
     b, H, W, _ = raw.shape
     ry_idx, ry_w, rx_idx, rx_w, scale, bias = (
-        t.numpy() for t in ftp._device_tables(H, W, resize, crop, None,
+        t.numpy() for t in fp.device_tables(H, W, resize, crop, None,
                                               None, "cpu"))
     k = offs.shape[1] if offs.ndim == 3 else 1
     flat = np.clip(offs.reshape(-1, 2), 0, crop - tile)

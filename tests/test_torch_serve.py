@@ -50,10 +50,52 @@ def test_ragged_batches():
 
 @pytest.mark.parametrize("flags", [
     ["--lanes", "2"], ["--sharded"], ["--online"], ["--fleet"],
-    ["--decode-dtype=bf16"], ["--escalate-tiles", "2"], ["--staged-ingest"]])
+    ["--decode-dtype=bf16"], ["--escalate-tiles", "2"], ["--cache-exact"]])
 def test_unported_flags_are_rejected(capsys, flags):
     with pytest.raises(SystemExit) as exc:
         serve.parse_args([*flags, *SMALL])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "unrecognized arguments" in err and flags[0] in err
+
+
+@pytest.mark.parametrize("flags,want", [
+    ([], dict(mode="qrmark", rs_mode="device", tile_first=True,
+              fused_decode=True, decode_schedule="flat")),
+    (["--mode", "sequential", "--rs-mode", "cpu_sync"],
+     dict(mode="sequential", rs_mode="cpu_sync")),
+    (["--mode", "tiled", "--rs-mode", "cpu_pool"],
+     dict(mode="tiled", rs_mode="cpu_pool")),
+    (["--staged-ingest", "--unfused-decode"],
+     dict(tile_first=False, fused_decode=False)),
+    (["--schedule", "bb4-ct8-db", "--autotune-cache", "x.json"],
+     dict(decode_schedule="bb4-ct8-db", autotune_cache="x.json"))])
+def test_configuration_flags(flags, want):
+    """The reference launcher's configuration flags, with its meanings;
+    the pipeline is built and closed (the pool's threads joined)."""
+    pipe = serve.build_pipeline(serve.parse_args([*flags, *SMALL]))
+    try:
+        for k, v in want.items():
+            assert getattr(pipe.cfg, k) == v, k
+    finally:
+        pipe.close()
+
+
+def test_mode_choices_are_checked(capsys):
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--mode", "fast", *SMALL])
+    assert "invalid choice" in capsys.readouterr().err
+
+
+def test_autotune_flag_sweeps_then_serves_auto(tmp_path, capsys):
+    """--autotune fills the cache for this configuration, then serves
+    with decode_schedule="auto", which resolves from the cache."""
+    cache = tmp_path / "sched.json"
+    serve.main(["--batches", "1", "--batch", "2", "--autotune",
+                "--autotune-cache", str(cache), *SMALL])
+    out = capsys.readouterr()
+    assert "[autotune] cached:" in out.out and out.err == ""
+    entries = json.loads(cache.read_text())["entries"]
+    assert list(entries) == ["cpu|fp32|t16|c64|d7|n60"]
+    rep = json.loads(out.out[out.out.index("{\n"):])
+    assert rep["images"] == 2
