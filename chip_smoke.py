@@ -18,7 +18,13 @@ In order, it
    the blocked decode kernel on every candidate schedule and three
    explicit points against its plain version and, bitwise, against the
    flat kernel, then an autotune sweep into
-   ``build/chip_smoke/decode_schedules.json``;
+   ``build/chip_smoke/decode_schedules.json``; then the bf16 and int8
+   rungs of both decode kernels at full width (flat at b=32, 1 and a
+   ragged 5, blocked on every candidate and the explicit points at
+   b=32 and 5, and the serve point at b=1) against their plain
+   versions and, bitwise, blocked against flat; call ms of each and the
+   ``ptxas -v`` registers and spills; and an int8 sweep into the same
+   cache under its own key;
 4. drives the serve launcher's code path (``repro_torch.launch.serve``)
    at full width for 3 batches of 32 synthetic images, checks that every
    kernel of the path was launched, replays one batch through the plain
@@ -29,12 +35,16 @@ In order, it
    configuration — qrmark with ``--staged-ingest``, ``--schedule auto``
    (from the sweep's cache), ``--schedule bb4-ct32-db`` and
    ``--rs-mode cpu_pool``, ``--mode tiled``, ``--mode sequential
-   --rs-mode cpu_sync`` (the paper's baseline) and ``--mode
-   sequential`` — checking each one's launch counts and its results
-   against the default path's, and prints images/s for each and the
-   ratio of the default path's median window to each sequential run;
-6. checks the default and the staged path against the JAX package's
-   golden outputs (``tests/data/torch_port_golden.npz``);
+   --rs-mode cpu_sync`` (the paper's baseline), ``--mode sequential``,
+   ``--decode-dtype bf16``, ``--decode-dtype int8`` and ``--decode-dtype
+   int8 --schedule auto`` (from the int8 sweep) — checking each one's
+   launch counts and its results against the default path's (the rungs'
+   bits wherever the fp32 logit clears the rungs' margin), and prints
+   images/s for each and the ratio of the default path's median window
+   to each sequential run;
+6. checks the default and the staged path, and the bf16 and int8 rungs,
+   against the JAX package's golden outputs
+   (``tests/data/torch_port_golden.npz``);
 7. prints one ``{"kernels": [...]}`` line and, last, the status line.
 
 Every failed check raises, so the script exits non-zero; it also exits
@@ -60,13 +70,24 @@ OUT = ROOT / "build" / "chip_smoke"   # ptxas log, trace, results JSON
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory, fp32 outside
-# the tensor cores, int32 ALU (64 lanes/SM x 132 SMs x 1.98 GHz)
+# the tensor cores, int32 ALU (64 lanes/SM x 132 SMs x 1.98 GHz), dense
+# bf16 and int8 tensor cores (the least time of the rungs' work)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_INT32_S = 16.7e12
+RUNG_PEAK_S = {"fp32": PEAK_FP32_S, "bf16": 989e12, "int8": 1979e12}
 
 INGEST_ATOL = 1e-5        # ingest vs plain: a few float32 ulps
 LOGIT_RTOL = 1e-4         # logits vs plain/golden: 1e-4 * (1 + max|ref|)
+RUNGS = ("bf16", "int8")
+# bf16 / int8 logits and embedding vs plain / golden, absolute: where two
+# fp32 sums of an activation differ by an ulp, its bf16 rounding or int8
+# quantization can land one step apart (up to ~1e-3 in a logit)
+RUNG_ATOL = 0.02
+# a rung's bits vs the fp32 path's wherever |fp32 logit| exceeds this
+# (int8 moved the serve path's logits by up to 0.094 from fp32 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, bf16 by up to 0.025)
+RUNG_MARGIN = 0.2
 FULL = dict(tile=64, img_size=256, resize_src=288)  # DetectionConfig()
 RAW = 288                 # serve launcher: img + 32
 WIDTH = dict(n_bits=60, channels=64, depth=7)       # serve launcher
@@ -400,6 +421,173 @@ def phase_blocked(dev, rng, card: str):
                 **times), cache, winner
 
 
+# -- phase 3f: the bf16 and int8 rungs of both decode kernels --------------
+def kernel_registers(log: str) -> dict:
+    """``ptxas -v`` per kernel: {name: (registers, spill stores, spill
+    loads)}, names demangled where ``c++filt`` is there."""
+    import re
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1))) + spill)
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [r[0] for r in rows]
+    return {n.split("(")[0]: r[1:] for n, r in zip(names, rows)}
+
+
+def rung_pack(dev, dtype: str):
+    from repro_torch.core.extractor import (init_extractor_numpy,
+                                            pack_params, params_from_numpy)
+    return pack_params(params_from_numpy(init_extractor_numpy(
+        1, tile=FULL["tile"], bias_scale=0.1, **WIDTH), dev), dtype)
+
+
+def decode_bound(packed, tiles, dtype: str):
+    """Each input byte read once (tiles, the pack at its dtype), each
+    output written once, and the decode's operations at the rung's peak."""
+    b, l = tiles.shape[0], tiles.shape[1]
+    n_bytes = 4 * tiles.numel() + sum(
+        t.numel() * t.element_size() for t in _leaves(packed)) + 4 * b * 60
+    return bound(n_bytes, extractor_flops(packed, b, l), RUNG_PEAK_S[dtype])
+
+
+def _hold_rung(got, want, what: str) -> float:
+    err = 0.0
+    for g, w in zip(got, want):
+        w = w.cpu().numpy()
+        e = float(np.abs(g.cpu().numpy() - w).max())
+        check(g.shape == w.shape and np.isfinite(e) and e <= RUNG_ATOL,
+              f"{what}: max |err| {e} vs plain > {RUNG_ATOL}")
+        err = max(err, e)
+    return err
+
+
+def phase_rungs(dev, rng, card: str, cache, regs: dict):
+    """Both decode kernels at bf16 and int8, full width: flat against its
+    plain version at b=32, 1 and 5; blocked against its plain version
+    and bitwise against flat on every candidate and the explicit points
+    at b=32 and 5, the serve point also at b=1; call ms (median of 20)
+    of every schedule at b=32, the plain versions' ms, the bounds at the
+    rung's peak.  Then an int8 autotune sweep into the same cache,
+    under the int8 key, and "auto" at int8 resolving from it."""
+    import torch
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import fused_extractor as fx
+    l = FULL["tile"]
+    serve_sc = at.Schedule.from_string(SERVE_SCHEDULE)
+    scheds = at.candidate_schedules(32, WIDTH["channels"], "cuda") + [
+        at.Schedule.from_string(s) for s in EXTRA_SCHEDULES]
+    scheds += [serve_sc] if serve_sc not in scheds else []
+    out = {}
+    for dtype in RUNGS:
+        pk = rung_pack(dev, dtype)
+        err = {"flat": 0.0, "blocked": 0.0}
+        sched_ms, main = {}, None
+        for b in (32, 1, 5):
+            tiles = torch.as_tensor(rng.uniform(-2.0, 2.5, (b, l, l, 3)).astype(
+                np.float32)).to(dev)
+            flat = fx.fused_extractor_cuda(tiles, pk, with_embed=True)
+            alone = fx.fused_extractor_cuda(tiles, pk)
+            want = fx.fused_extractor_plain(tiles, pk, with_embed=True)
+            torch.cuda.synchronize()
+            check(torch.equal(alone, flat[0]),
+                  f"{dtype} flat b={b}: the embedding output moved logits")
+            err["flat"] = max(err["flat"], _hold_rung(
+                flat, want, f"{dtype} flat b={b}"))
+            for sc in (scheds if b != 1 else [serve_sc]):
+                kw = dict(batch_block=sc.batch_block,
+                          channel_tile=sc.channel_tile,
+                          double_buffer=sc.double_buffer)
+                got = fx.fused_extractor_blocked_cuda(tiles, pk,
+                                                      with_embed=True, **kw)
+                want = fx.fused_extractor_blocked_plain(tiles, pk,
+                                                        with_embed=True, **kw)
+                torch.cuda.synchronize()
+                err["blocked"] = max(err["blocked"], _hold_rung(
+                    got, want, f"{dtype} blocked {sc.to_string()} b={b}"))
+                check(torch.equal(got[0], flat[0]) and
+                      torch.equal(got[1], flat[1]),
+                      f"{dtype} blocked {sc.to_string()} b={b} differs "
+                      f"from flat")
+                if b == 32:
+                    sched_ms[sc.to_string()] = call_ms(
+                        lambda: fx.fused_extractor_blocked_cuda(tiles, pk,
+                                                                **kw))
+            if b == 32:
+                main = tiles
+                sched_ms["flat"] = call_ms(
+                    lambda: fx.fused_extractor_cuda(tiles, pk))
+        tiles = main
+        kw = dict(batch_block=serve_sc.batch_block,
+                  channel_tile=serve_sc.channel_tile,
+                  double_buffer=serve_sc.double_buffer)
+        bound_ms, by = decode_bound(pk, tiles, dtype)
+        out[dtype] = {
+            "fused_extractor": dict(
+                ms=sched_ms["flat"], max_abs_err=err["flat"],
+                plain_ms=call_ms(lambda: fx.fused_extractor_plain(tiles, pk)),
+                bound_ms=bound_ms, bound_by=by, library_ms=None),
+            "fused_extractor_blocked": dict(
+                ms=sched_ms[SERVE_SCHEDULE], max_abs_err=err["blocked"],
+                plain_ms=call_ms(lambda: fx.fused_extractor_blocked_plain(
+                    tiles, pk, **kw), 5),
+                bound_ms=bound_ms, bound_by=by, library_ms=None),
+            "schedules_ms": sched_ms}
+        r = out[dtype]
+        print(f"{dtype}: flat within {err['flat']:.3g} and blocked within "
+              f"{err['blocked']:.3g} of their plain versions (tol "
+              f"{RUNG_ATOL}) at b=32, 1 and 5; blocked bitwise equal to "
+              f"flat on {len(scheds)} schedules (every candidate, "
+              f"{', '.join(EXTRA_SCHEDULES)}); on {card}:")
+        for k in ("fused_extractor", "fused_extractor_blocked"):
+            print(f"  {k}: {r[k]['ms']:.4f} ms, plain {r[k]['plain_ms']:.4f}"
+                  f" ms, bound {r[k]['bound_ms']:.3g} ms ({by}), batch 32")
+        print("  call ms at b=32: " + ", ".join(
+            f"{n} {ms:.4f}" for n, ms in sorted(sched_ms.items(),
+                                               key=lambda kv: kv[1])))
+        tag = {"bf16": "RBF16", "int8": "RI8"}[dtype]
+        extra = {"bf16": "__nv_bfloat16", "int8": "quantize_rows"}[dtype]
+        mine = {k: v for k, v in regs.items() if tag in k or extra in k}
+        print("  registers / spill stores / spill loads: " + "; ".join(
+            f"{k.replace('qr::', '').replace('void ', '')} {v[0]}/{v[1]}/"
+            f"{v[2]}" for k, v in sorted(mine.items())))
+        r["registers"] = mine
+    pk8 = rung_pack(dev, "int8")
+    winner = at.autotune(pk8, tile=l, batch=32, dtype="int8",
+                         cache_path=cache, iters=5, warmup=2)
+    entries = at.load_cache(cache)["entries"]
+    check(sorted(k.split("|")[1] for k in entries) == ["fp32", "int8"],
+          f"the cache should hold an fp32 and an int8 entry: {list(entries)}")
+    hint = io.StringIO()
+    with contextlib.redirect_stderr(hint):
+        got = at.resolve_schedule("auto", dtype="int8", tile=l,
+                                  channels=WIDTH["channels"],
+                                  depth=WIDTH["depth"],
+                                  n_bits=WIDTH["n_bits"], cache_path=cache,
+                                  device=dev)
+    check(hint.getvalue() == "" and got == winner,
+          f"int8 auto did not resolve from the cache: {got} / "
+          f"{hint.getvalue()}")
+    name = "flat" if winner is None else winner.to_string()
+    print(f"autotune int8: winner {name}, its own entry beside fp32's in "
+          f"{cache.relative_to(ROOT)}; auto at int8 resolves to it")
+    out["int8"]["winner"] = name
+    return out, winner
+
+
 # -- phase 3c: RS decode ---------------------------------------------------
 def rs_words(rng, n_each: int) -> np.ndarray:
     """Codewords with 0, 1 and 2 symbol errors, and uniform words."""
@@ -588,7 +776,7 @@ def serve_config(flags, batches, card: str, profile: str = ""):
 
 
 def phase_configs(batches, default_results, default_ips, cache, winner,
-                  card: str):
+                  winner8, card: str):
     """Each configuration of the second slice on the default path's 3
     batches of 32: launch counts per batch, and its results against the
     default path's (the same keys: batch k of each stream).
@@ -599,6 +787,8 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
                 fused_extractor=0, fused_extractor_blocked=0, rs_decode=0)
     auto_kernel = ("fused_extractor" if winner is None
                    else "fused_extractor_blocked")
+    auto8_kernel = ("fused_extractor" if winner8 is None
+                    else "fused_extractor_blocked")
     configs = [
         ("staged", ["--staged-ingest"],
          dict(fused_preprocess=n, fused_extractor=n, rs_decode=n), "exact"),
@@ -617,13 +807,26 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
         # baseline's time between its decode and its host RS
         ("sequential-device", ["--mode", "sequential"], dict(rs_decode=n),
          None),
+        # the lower rungs on the default path, and int8 on the schedule
+        # its own sweep picked
+        ("bf16", ["--decode-dtype", "bf16"],
+         dict(fused_tile_preprocess=n, fused_extractor=n, rs_decode=n),
+         "rung"),
+        ("int8", ["--decode-dtype", "int8"],
+         dict(fused_tile_preprocess=n, fused_extractor=n, rs_decode=n),
+         "rung"),
+        ("int8-auto", ["--decode-dtype", "int8", "--schedule", "auto",
+                       "--autotune-cache", str(cache)],
+         {"fused_tile_preprocess": n, auto8_kernel: n, "rs_decode": n},
+         "rung"),
     ]
     out = {}
     for name, flags, want, relation in configs:
         rep, results, counts = serve_config(
             flags, batches, card,
             profile=name if name in ("staged", "blocked",
-                                     "sequential-device") else "")
+                                     "sequential-device", "bf16", "int8",
+                                     "int8-auto") else "")
         check(counts == {**zero, **want},
               f"{name}: launches {counts}, expected {({**zero, **want})}")
         check(rep.images == 32 * n, f"{name}: served {rep.images} images")
@@ -643,8 +846,37 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
                 check(np.array_equal(r["message_bits"][ok],
                                      d["message_bits"][ok]),
                       f"{name}: messages differ where ok")
+            elif relation == "rung":
+                sure = np.abs(d["logits"]) > RUNG_MARGIN
+                check(np.array_equal((r["logits"] > 0)[sure],
+                                     (d["logits"] > 0)[sure]),
+                      f"{name}: a bit differs from the fp32 path where "
+                      f"|logit| > {RUNG_MARGIN}")
+                rows = sure.all(axis=1)
+                for k in ("message_bits", "ok", "n_corrected"):
+                    check(np.array_equal(r[k][rows], d[k][rows]),
+                          f"{name}: {k} differs from the fp32 path on a "
+                          f"margined row")
+        if name == "int8-auto":
+            for r, f in zip(results, out["int8"]["results"]):
+                for k in ("logits", "message_bits", "ok", "n_corrected"):
+                    check(np.array_equal(r[k], f[k]),
+                          f"int8-auto: {k} differs from int8 on the flat "
+                          f"schedule")
         out[name] = dict(images_per_s=rep.throughput_ips, launches=counts,
                          flags=flags)
+        if relation == "rung":
+            dev_ = max(float(np.abs(r["logits"] - d["logits"]).max())
+                       for r, d in zip(results, default_results))
+            sure = np.concatenate([np.abs(d["logits"]) > RUNG_MARGIN
+                                   for d in default_results])
+            out[name].update(results=results, max_dev_vs_fp32=dev_)
+            print(f"  {name}: max |logit - fp32 logit| {dev_:.4g}; bits "
+                  f"equal to fp32's on the {int(sure.sum())} of "
+                  f"{sure.size} with |fp32 logit| > {RUNG_MARGIN}; "
+                  f"{int(sure.all(axis=1).sum())} rows margined whole")
+    for name in ("bf16", "int8", "int8-auto"):
+        del out[name]["results"]
     for name in ("sequential", "sequential-device"):
         ips = out[name]["images_per_s"]
         print(f"qrmark {default_ips:.1f} images/s (median of the 102-batch "
@@ -689,6 +921,28 @@ def phase_golden():
         outs[prefix] = out
     check(np.array_equal(outs[""]["logits"], outs["staged_"]["logits"]),
           "golden: staged logits differ from tile-first logits on the card")
+    for dtype in RUNGS:
+        prefix = dtype + "_"
+        pipe = DetectionPipeline(DetectionConfig(**FULL, decode_dtype=dtype),
+                                 params, device="cuda")
+        out = pipe.detect_batch(raw)
+        ref = g[prefix + "logits"]
+        e = float(np.abs(out["logits"] - ref).max())
+        check(e <= RUNG_ATOL, f"golden {dtype} logits: max |err| {e}")
+        margined = np.abs(ref).min(axis=1) > RUNG_ATOL
+        check(margined.any(), f"no margined golden {dtype} row")
+        # and the fp32 path's decisions where the fp32 logits clear the
+        # rungs' margin
+        sure = np.abs(g["logits"]).min(axis=1) > RUNG_MARGIN
+        check(sure.any(), f"no golden row clears {RUNG_MARGIN}")
+        for k in ("message_bits", "ok", "n_corrected"):
+            check((out[k][margined] == g[prefix + k][margined]).all(),
+                  f"golden {dtype} {k} differs on a margined row")
+            check((out[k][sure] == g[k][sure]).all(),
+                  f"golden {dtype} {k} differs from the fp32 decision")
+        print(f"golden {dtype}: {int(margined.sum())}/{len(ref)} margined "
+              f"rows exact, {int(sure.sum())} rows equal to the fp32 path's "
+              f"RS outputs, logits max |err| {e:.3g} (tol {RUNG_ATOL})")
 
 
 def main() -> int:
@@ -727,6 +981,8 @@ def main() -> int:
               "fused_preprocess": phase_preprocess(dev, rng)}
     phases["fused_extractor_blocked"], cache, winner = phase_blocked(
         dev, rng, card)
+    regs = kernel_registers(log)
+    rungs, winner8 = phase_rungs(dev, rng, card, cache, regs)
     for name, r in phases.items():
         print(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.3g} ms ({r['bound_by']}), max |err| "
@@ -736,7 +992,7 @@ def main() -> int:
     profile_path(pipe, batches, card)
     configs = phase_configs(batches, results,
                             statistics.median(window_ips), cache, winner,
-                            card)
+                            winner8, card)
     phase_golden()
 
     # launches: each kernel's count on the path that runs it (the
@@ -764,13 +1020,31 @@ def main() -> int:
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
-                **{k: phases[name][k] for k in keys}}
-               for name, (src, rep) in meta.items()]
+    # the decode kernels' lower rungs: launches from the serve runs that
+    # drive them (the blocked bf16 rung has none, its launches null)
+    rung_launches = {
+        "fused_extractor": {
+            "bf16": configs["bf16"]["launches"]["fused_extractor"],
+            "int8": configs["int8"]["launches"]["fused_extractor"]},
+        "fused_extractor_blocked": {
+            "bf16": None,
+            "int8": configs["int8-auto"]["launches"][
+                "fused_extractor_blocked"]}}
+    kernels = []
+    for name, (src, rep) in meta.items():
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep, "launches": launches[name],
+                 **{k: phases[name][k] for k in keys}}
+        if name in rung_launches:
+            entry["rungs"] = ["fp32", *RUNGS]
+            entry["by_rung"] = {dt: {"launches": rung_launches[name][dt],
+                                     **{k: rungs[dt][name][k] for k in keys}}
+                                for dt in RUNGS}
+        kernels.append(entry)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phases": phases,
-         "window_ips": window_ips, "configs": configs}, indent=1))
+         "rungs": rungs, "window_ips": window_ips, "configs": configs},
+        indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,15 +9,19 @@ verified 48-bit keys in one of three modes:
 * ``tiled`` — + per-image tile decode (naive tiling);
 * ``qrmark`` — tile-first fused ingest (or, with ``tile_first=False``,
   the fused full-image ingest kernel then tile selection), the fused
-  fp32 decode kernel on the flat or a blocked schedule
-  (``decode_schedule``).
+  decode kernel on the flat or a blocked schedule (``decode_schedule``)
+  at the precision ``decode_dtype`` picks: fp32; bf16 (bf16 operands,
+  fp32 sums); int8 (per-channel weight scales, per-pixel activation
+  quantization, exact integer tap dots, fp32 dequantization).  The
+  lower rungs move logits by up to a few 1e-2 against fp32, which RS
+  absorbs.
 
 RS runs on the card (``rs_mode="device"``), per row on the host
 (``cpu_sync``) or in a thread pool with a codebook (``cpu_pool``).
 qrmark with device RS goes through the registry's fused path
 (``StageRegistry.fused_keyed``); every other configuration through the
-staged one (ingest -> decode -> bits -> ``rs_correct``).  Escalation,
-the bf16/int8 rungs and the serving cache are not ported yet.
+staged one (ingest -> decode -> bits -> ``rs_correct``).  Escalation
+and the serving cache are not ported yet.
 
 The pipeline runs on the card by default: ``device=None`` means
 ``"cuda"``, and raises if no GPU is present.  ``device="cpu"`` runs the
@@ -46,9 +50,9 @@ from repro_torch.core.stages import StageRegistry
 @dataclasses.dataclass
 class DetectionConfig:
     """Configuration of the detection engines, with the reference's
-    fields, names and defaults.  Every mode, ingest path, RS engine and
-    fp32 decode schedule runs; a non-default code with device RS, a
-    bf16/int8 dtype, escalation or a serving-cache setting raises
+    fields, names and defaults.  Every mode, ingest path, RS engine,
+    decode schedule and decode dtype runs; a non-default code with
+    device RS, escalation or a serving-cache setting raises
     ``NotImplementedError`` when a pipeline is built (see
     ``stages.check_config``)."""
     tile: int = 64
@@ -61,9 +65,9 @@ class DetectionConfig:
     fused_preprocess: bool = True
     tile_first: bool = True        # fuse tile selection into ingest
     fused_decode: bool = True      # fused extractor decode kernel
-    decode_dtype: str = "fp32"     # fp32 | bf16 | int8
+    decode_dtype: str = "fp32"     # fp32 | bf16 | int8 (fused decode)
     decode_schedule: str = "flat"  # flat | auto | "bb<N>-ct<N>[-db]"
-    autotune_cache: str = ""       # schedule cache path for "auto"
+    autotune_cache: str = ""       # schedule cache path ("auto", by dtype)
     interleave: bool = True
     rs_threads: int = 32
     lane_budget: int = 8

@@ -12,9 +12,10 @@ the RNG-key discipline, built once per (config, params, device):
    ``fused_preprocess=False``);
 3. decode: tiles picked per image from the staged image
    (``tiling.select_tiles_per_image``; ``sequential`` decodes the full
-   image), then the fused fp32 extractor (``ops.fused_extractor`` on
-   the flat or a blocked schedule) or, with ``fused_decode`` off or
-   outside qrmark, the plain ``extractor_forward``;
+   image), then the fused extractor (``ops.fused_extractor`` on the
+   flat or a blocked schedule, on weights packed once at
+   ``cfg.decode_dtype``: fp32, bf16 or int8) or, with ``fused_decode``
+   off or outside qrmark, the plain fp32 ``extractor_forward``;
 4. ``logits > 0`` then RS: the batched Berlekamp-Welch kernel
    (``rs_mode="device"``), the scalar codec per row (``cpu_sync``), or
    the thread pool with its codebook (``cpu_pool``).
@@ -68,6 +69,8 @@ def check_config(cfg):
         raise ValueError(f"unknown pipeline mode {cfg.mode!r}")
     if cfg.rs_mode not in ("device", "cpu_pool", "cpu_sync"):
         raise ValueError(f"unknown rs_mode {cfg.rs_mode!r}")
+    if cfg.decode_dtype not in extractor_lib.DECODE_DTYPES:
+        raise ValueError(f"unknown decode_dtype {cfg.decode_dtype!r}")
     if cfg.strategy not in tiling.STRATEGIES:
         raise ValueError(f"unknown tiling strategy {cfg.strategy!r}")
     if cfg.escalate_tiles < 1:
@@ -85,8 +88,6 @@ def check_config(cfg):
         check_code(cfg.code)  # other codes need the batched jax_rs twin
     if cfg.escalate_tiles > 1:
         _unported("escalation (escalate_tiles > 1)", "9")
-    if cfg.decode_dtype != "fp32":
-        _unported(f"decode_dtype={cfg.decode_dtype!r}", "10")
     if cfg.cache_exact or cfg.cache_embedding_threshold > 0.0:
         _unported("the serving cache (cache_exact / "
                   "cache_embedding_threshold)", "13")
@@ -109,10 +110,11 @@ class StageRegistry:
         self.decode_schedule = None
         if self.fused_decode:
             # "flat" -> None (the flat kernel), "auto" -> the autotune
-            # cache (flat fallback with a printed hint on a miss), or an
-            # explicit "bb<N>-ct<N>[-db]" point: resolved once here, and
-            # on a card held to what the blocked kernel runs before
-            # anything moves to the device
+            # cache entry of this dtype (flat fallback with a printed
+            # hint on a miss), or an explicit "bb<N>-ct<N>[-db]" point:
+            # resolved once here, and on a card held to what the blocked
+            # kernel runs (at every rung) before anything moves to the
+            # device
             blocks = params["blocks"]
             channels = blocks[0]["w"].shape[-1]
             self.decode_schedule = autotune_lib.resolve_schedule(

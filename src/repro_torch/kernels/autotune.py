@@ -13,15 +13,17 @@ built.  The backend is ``cuda:<device name>`` on a card (a schedule
 tuned on one card type is not taken for another) and ``cpu`` on the
 CPU, where the plain versions run.
 
-fp32 schedules are interchangeable bitwise on the card (the blocked
-kernel equals the flat one at every candidate), so a stale or missing
-cache can always fall back to the flat schedule — loudly, never
-silently.
+Schedules are interchangeable bitwise on the card at every rung (the
+blocked kernel equals the flat one at every candidate), so a stale or
+missing cache can always fall back to the flat schedule — loudly, never
+silently.  Each dtype has its own cache entry: the pack's dtype is part
+of the key.
 
 CLI::
 
     PYTHONPATH=src python -m repro_torch.kernels.autotune \\
-        --tile 64 --batch 32 --cache experiments/autotune/decode_schedules.json
+        --tile 64 --batch 32 [--dtype fp32|bf16|int8] \\
+        --cache experiments/autotune/decode_schedules.json
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from repro_torch.core.extractor import packed_dtype
 
 CACHE_VERSION = 1
 
@@ -142,16 +146,24 @@ def time_fn(fn, *args, iters: int = 3, warmup: int = 1,
     return statistics.median(samples)
 
 
+def _check_dtype(packed, dtype: str):
+    if packed_dtype(packed) != dtype:
+        raise ValueError(f"dtype {dtype!r} does not match the pack's "
+                         f"{packed_dtype(packed)!r}")
+
+
 def sweep(packed, tile: int, batch: int, *, dtype: str = "fp32",
           iters: int = 3, warmup: int = 1, candidates=None,
           quick: bool = False, log=print) -> dict:
     """Time the flat kernel and every candidate blocked schedule on a
-    synthetic (batch, tile, tile, 3) workload on the pack's device;
-    return the record that goes into the cache.  Flat itself is a
-    candidate: when every blocked schedule loses to it, the cached
-    winner is "flat" — the tuner never crowns a schedule slower than
-    the baseline.  The record keeps the full swept list either way."""
+    synthetic (batch, tile, tile, 3) workload on the pack's device, at
+    the pack's rung (``dtype`` must name it); return the record that
+    goes into the cache.  Flat itself is a candidate: when every blocked
+    schedule loses to it, the cached winner is "flat" — the tuner never
+    crowns a schedule slower than the baseline.  The record keeps the
+    full swept list either way."""
     from repro_torch.kernels import ops as kops
+    _check_dtype(packed, dtype)
 
     device = packed["head"]["b"].device
     backend = backend_name(device)
@@ -248,8 +260,10 @@ def autotune(packed, *, tile: int, batch: int, dtype: str,
              quick: bool = False, force: bool = False, log=print):
     """Cache-through autotune: return the winning Schedule for this
     (backend, dtype, tile, net) key, sweeping and persisting only on a
-    cache miss (or ``force``).  Prints "cache hit" on reuse so smoke
-    tests can assert the sweep was skipped."""
+    cache miss (or ``force``).  ``dtype`` must be the pack's.  Prints
+    "cache hit" on reuse so smoke tests can assert the sweep was
+    skipped."""
+    _check_dtype(packed, dtype)
     key = schedule_key(backend=backend_name(packed["head"]["b"].device),
                        dtype=dtype, tile=tile,
                        channels=packed["blocks"][0]["w"].shape[-1],
@@ -316,8 +330,9 @@ def main(argv=None):
         description="Sweep blocked decode schedules and cache winners")
     ap.add_argument("--tile", type=int, default=64)
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--dtype", default="fp32", choices=("fp32",),
-                    help="bf16 and int8 are ROADMAP queue 1 item 10")
+    ap.add_argument("--dtype", default="fp32",
+                    choices=("fp32", "bf16", "int8"),
+                    help="decode rung to tune (its own cache entry)")
     ap.add_argument("--channels", type=int, default=64)
     ap.add_argument("--depth", type=int, default=7)
     ap.add_argument("--n-bits", type=int, default=60)

@@ -1,0 +1,813 @@
+// Extractor decode: the conv stack, to_bits, GAP, head and correlation bank
+// that turn (b, l, l, 3) tiles into (b, n_bits) bit logits (and, on
+// request, the (b, n_bits) GAP embedding), at the three rungs of the
+// reference's precision ladder.  Templates shared by the three sources
+// fused_extractor.cu (fp32 and the C entry points), fused_extractor_bf16.cu
+// and fused_extractor_int8.cu, each of which instantiates one rung, so
+// nvcc builds the rungs in parallel.
+//
+// Replaces the Pallas kernels `fused_extractor`
+// (src/repro/kernels/fused_extractor.py:82, pallas_call at :113) and
+// `fused_extractor_blocked` (:149, pallas_call at :257).  Their grid step
+// runs the shared body `extractor_forward_packed_embed`
+// (src/repro/core/extractor.py:273): D SAME 3x3 conv blocks as nine tap
+// dots in static [ky, kx] order + bias + channel_norm + ReLU, the to_bits
+// 3x3 conv, GAP, the head as broadcast-multiply + sum, and
+// highpass(tiles) . corr summed over (pixel, channel) x corr_scale.  The
+// packed dtype picks the rung (the reference's `tap_dot`,
+// src/repro/core/extractor.py:140):
+//
+//   fp32  fp32 tap dots;
+//   bf16  tap-dot inputs and weights rounded to bf16, exact products, fp32
+//         sums; head and correlation: fp32 products of bf16-rounded
+//         operands (the jitted reference keeps them at fp32);
+//   int8  each tap's input row (one input pixel's cin channels, zero for
+//         padding) quantized per row, an exact int8 x int8 -> int32 dot,
+//         dequantized as (y * s_row) * w_scale[co] and folded into the
+//         fp32 sum; head and correlation fp32.
+//
+// What bounds it on the H100: operations.  At l=64, C=64, D=7 one image
+// costs ~2.1 GFLOP; the fp32 rung runs on FFMA (67 TFLOP/s at most), the
+// lower rungs' bounds are the tensor cores' (989 bf16, 1979 int8), which
+// these kernels do not use yet: bf16 runs the fp32 FFMA chain on rounded
+// operands, int8 runs __dp4a (4 multiply-adds per instruction).
+//
+// Design: one image's fp32 activation is 1 MiB at l=64, C=64 — more than
+// an SM's 227 KB of shared memory — so the TPU's whole-forward-per-step
+// fusion does not carry over.  Instead one direct-conv kernel per layer:
+// a block owns a pixel tile of one image (flat: 8x16) and ALL output
+// channels, one thread per pixel, so channel_norm's reduction over channels
+// stays in the thread's registers and fuses into the epilogue (bias + norm
+// + ReLU).  The block stages its input halo in shared memory (zero padding
+// = SAME) and the weights of one tap (flat) or of all nine taps of an
+// output-channel tile (blocked).  Per tap the thread computes a fresh
+// partial over the input channels (`tap_fold`, the rung's tap primitive,
+// one body for the flat and the blocked kernel) and folds it into its
+// accumulator: the reference's nine tap dots folded left in [ky, kx]
+// order.  Activations go through global memory between layers, in fp32 at
+// every rung.  The last conv (to_bits) kernel reduces its tile's
+// (y + bias) over pixels in a fixed order into a per-tile GAP partial and,
+// when the correlation bank is on, the tile's highpass . corr partial; a
+// small head kernel sums the partials per image in tile order and applies
+// GAP scale, head and corr.  Every reduction has a fixed order, so a row's
+// logits do not depend on the batch it came in.
+//
+// Per rung:
+//   bf16  weights stay bf16 in global and shared memory; each activation
+//         is rounded to bf16 as the halo is loaded (layer 0's tiles too)
+//         and kept as a float, so the FFMA chain of the fp32 rung runs on
+//         exactly representable products.  The highpass is computed in
+//         fp32 from the fp32 tiles, then rounded.
+//   int8  a small pass (`quantize_rows_kernel`) quantizes each layer's
+//         input once per pixel: int8 values, four input channels to a
+//         32-bit word (layer 0 pads 3 -> 4 with a zero), and one fp32
+//         scale s = max(amax, 1e-8) * float(1/127) per pixel, q =
+//         rint(x / s) clipped to +-127 (the jitted reference multiplies by
+//         the reciprocal for the scale and divides for q).  The conv
+//         stages the weights re-laid into the same four-channel words
+//         (synchronously: cp.async cannot re-lay bytes) and the per-column
+//         scales, and takes each tap's dot with __dp4a.  A padding pixel
+//         has q = 0, so its tap adds (0 * s) * w_scale = 0.
+//
+// Blocked schedule, `conv_blocked_kernel`: the same forward re-blocked by
+// a schedule (batch block bb, output-channel tile ct, double_buffer) whose
+// output is bitwise the flat kernel's at every rung.  On the TPU the
+// schedule sizes VMEM scratch and grid steps; here it sizes what a block
+// stages in shared memory.  A block owns a 16x16 pixel tile (256 threads,
+// one per pixel) of bb images in turn.  For each output-channel tile
+// [j0, j0 + ct) it stages the weight slice of ALL nine taps once and reuses
+// it for the bb images: the flat kernel restages each tap's slice for
+// every 128-pixel tile of every image, and syncs between taps; this one
+// runs the nine taps of an image without a barrier.  With ct < C the
+// (pixel, C) pre-norm result lands in the output buffer, tile by tile, as
+// the reference's (M, C) accumulator scratch, and the epilogue then reads
+// all C channels of the thread's own pixel back; a thread reads only what
+// it wrote, so no barrier is needed.  Fewer channels per pass means fewer
+// registers per thread.  `db` (with ct < C) double-buffers the weight
+// slices: the next channel tile's slice is fetched with cp.async while the
+// current one computes (the int8 rung stages synchronously, so there db
+// only changes the order of the staging).  A ragged batch (bb not dividing
+// b) masks the missing images of the last block: the reference computes
+// zero pad rows and slices them off, which leaves the real rows the same.
+// Bitwise equality with the flat kernel: every output channel goes through
+// the same `tap_fold` on the same staged values and the same left fold
+// over the nine taps, and the epilogue sums over channels in channel
+// order.  The int8 rung keeps it at every channel tile too (the reference
+// is only ulp-close there): its dot is exact and its dequantize is per
+// column.  The to_bits conv, GAP, correlation and head run the flat
+// kernels (n_bits is always one full-width tile, as in the reference).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace qr {
+
+// ---- rungs -------------------------------------------------------------
+// W: a packed conv weight in global memory; SW: the same weight staged in
+// shared memory; X: one halo element (an input channel, or for int8 a word
+// of four); H: the head / correlation operands.
+struct RF32 {
+  using W = float;
+  using SW = float;
+  using X = float;
+  using H = float;
+  static constexpr int KPACK = 1;  // input channels per halo element
+};
+struct RBF16 {
+  using W = __nv_bfloat16;
+  using SW = __nv_bfloat16;
+  using X = float;  // bf16-rounded
+  using H = __nv_bfloat16;
+  static constexpr int KPACK = 1;
+};
+struct RI8 {
+  using W = int8_t;
+  using SW = int;  // four int8 weights of consecutive input channels
+  using X = int;   // four int8 activations of consecutive input channels
+  using H = float;
+  static constexpr int KPACK = 4;
+};
+
+constexpr float kInvQmax = 0x1.020408p-7f;  // float(1/127)
+constexpr float kQEps = 1e-8f;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+// v rounded to the precision of T (identity for float)
+template <class T>
+__device__ __forceinline__ float round_to(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// four consecutive staged weights as floats
+__device__ __forceinline__ float4 load_w4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_w4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// halo elements per pixel for cin input channels
+template <class R>
+__host__ __device__ __forceinline__ int halo_words(int cin) {
+  return (cin + R::KPACK - 1) / R::KPACK;
+}
+
+constexpr int TH = 8, TW = 16, NPIX = TH * TW;  // flat: one thread per pixel
+constexpr int HWD = TW + 2, NHALO = (TH + 2) * HWD;
+constexpr int BTH = 16, BTW = 16, BNPIX = BTH * BTW;  // blocked
+constexpr int BHWD = BTW + 2, BNHALO = (BTH + 2) * BHWD;
+
+// The layer input for the (PH + 2) x (PW + 2) halo of the PH x PW pixel
+// tile at (y0, x0) of image img, zero outside the image:
+// s_in[k * NH + p] = element k of halo pixel p.  fp32 / bf16: x is the
+// (b, l, l, cin) fp32 activation (rounded to bf16 for the bf16 rung).
+// int8: x holds the quantized words (b, l, l, cw), xs the per-pixel
+// scales, which land in s_sc[p].
+template <class R, int PH, int PW>
+__device__ __forceinline__ void load_halo(const void* __restrict__ xv,
+                                          const float* __restrict__ xs,
+                                          typename R::X* s_in, float* s_sc,
+                                          long long img, int y0, int x0,
+                                          int l, int cin) {
+  using X = typename R::X;
+  constexpr int HW_ = PW + 2, NH = (PH + 2) * (PW + 2);
+  const int cw = halo_words<R>(cin);
+  const X* xi = static_cast<const X*>(xv) + img * l * l * cw;
+  for (int e = threadIdx.x; e < NH * cw; e += blockDim.x) {
+    const int k = e % cw, p = e / cw;
+    const int gy = y0 + p / HW_ - 1, gx = x0 + p % HW_ - 1;
+    X v = 0;
+    if (gy >= 0 && gy < l && gx >= 0 && gx < l)
+      v = xi[((long long)gy * l + gx) * cw + k];
+    if constexpr (std::is_same<R, RBF16>::value)
+      v = round_to<__nv_bfloat16>(v);
+    s_in[k * NH + p] = v;
+  }
+  if constexpr (std::is_same<R, RI8>::value) {
+    const float* si = xs + img * l * l;
+    for (int p = threadIdx.x; p < NH; p += blockDim.x) {
+      const int gy = y0 + p / HW_ - 1, gx = x0 + p % HW_ - 1;
+      // a padding row: amax 0, so the reference's scale, and q = 0
+      s_sc[p] = (gy >= 0 && gy < l && gx >= 0 && gx < l)
+                    ? si[(long long)gy * l + gx]
+                    : __fmul_rn(kQEps, kInvQmax);
+    }
+  }
+}
+
+// Weight staging: taps [tap0, tap0 + ntaps), output columns
+// [col0, col0 + ncols) of the packed (9 * cin, cout) weight w ->
+// s_w[((tap - tap0) * cw + k) * ncols + c].  int8 packs the four input
+// channels 4k..4k+3 of a column into one word (zero past cin).
+template <class R>
+__device__ __forceinline__ void stage_slice(const typename R::W* __restrict__ w,
+                                            typename R::SW* s_w, int cin,
+                                            int cout, int tap0, int ntaps,
+                                            int col0, int ncols) {
+  const int cw = halo_words<R>(cin);
+  for (int e = threadIdx.x; e < ntaps * cw * ncols; e += blockDim.x) {
+    const int c = e % ncols, r = e / ncols;
+    if constexpr (std::is_same<R, RI8>::value) {
+      const long long row = (long long)(tap0 + r / cw) * cin;
+      const int k = r % cw;
+      unsigned word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ci = 4 * k + j;
+        if (ci < cin)
+          word |= (unsigned)(uint8_t)w[(row + ci) * cout + col0 + c]
+                  << (8 * j);
+      }
+      s_w[e] = (int)word;
+    } else {  // one halo element per input channel: row tap0 * cin + r
+      s_w[e] = w[((long long)tap0 * cin + r) * cout + col0 + c];
+    }
+  }
+}
+
+// THE tap primitive of every rung, shared by the flat and the blocked
+// kernel: one tap's dot for N output channels at this thread's pixel,
+// folded left into acc ([ky, kx] order; tap 0 starts the sum).
+//   sp     the pixel's element 0 in the halo, planes nh apart;
+//   wt     the tap's staged weights, (cw, N);
+//   sx     int8: the input pixel's scale; s_scale: the N column scales.
+template <class R, int N>
+__device__ __forceinline__ void tap_fold(const typename R::X* sp, int nh,
+                                         const typename R::SW* wt, int cw,
+                                         float sx, const float* s_scale,
+                                         int tap, float (&acc)[N]) {
+  static_assert(N % 4 == 0, "output channels come in fours");
+  if constexpr (std::is_same<R, RI8>::value) {
+    int part[N];
+#pragma unroll
+    for (int co = 0; co < N; ++co) part[co] = 0;
+#pragma unroll 2
+    for (int k = 0; k < cw; ++k) {
+      const int xv = sp[k * nh];
+      const int4* w4 = reinterpret_cast<const int4*>(wt + k * N);
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const int4 wv = w4[q];
+        part[4 * q + 0] = __dp4a(xv, wv.x, part[4 * q + 0]);
+        part[4 * q + 1] = __dp4a(xv, wv.y, part[4 * q + 1]);
+        part[4 * q + 2] = __dp4a(xv, wv.z, part[4 * q + 2]);
+        part[4 * q + 3] = __dp4a(xv, wv.w, part[4 * q + 3]);
+      }
+    }
+    // |part| < 2^24 (at most cin * 127^2), so the conversion is exact
+#pragma unroll
+    for (int co = 0; co < N; ++co) {
+      const float d =
+          __fmul_rn(__fmul_rn(__int2float_rn(part[co]), sx), s_scale[co]);
+      acc[co] = tap == 0 ? d : __fadd_rn(acc[co], d);
+    }
+  } else {
+    float part[N];
+#pragma unroll
+    for (int co = 0; co < N; ++co) part[co] = 0.f;
+#pragma unroll 2
+    for (int ci = 0; ci < cw; ++ci) {
+      const float xv = sp[ci * nh];
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 wv = load_w4(wt + ci * N + 4 * q);
+        part[4 * q + 0] = fmaf(xv, wv.x, part[4 * q + 0]);
+        part[4 * q + 1] = fmaf(xv, wv.y, part[4 * q + 1]);
+        part[4 * q + 2] = fmaf(xv, wv.z, part[4 * q + 2]);
+        part[4 * q + 3] = fmaf(xv, wv.w, part[4 * q + 3]);
+      }
+    }
+    if (tap == 0) {
+#pragma unroll
+      for (int co = 0; co < N; ++co) acc[co] = part[co];
+    } else {
+#pragma unroll
+      for (int co = 0; co < N; ++co) acc[co] = __fadd_rn(acc[co], part[co]);
+    }
+  }
+}
+
+// Shared memory of the flat kernels' conv: one tap's weights (cw, N), the
+// halo (NHALO, cw) and, for int8, the halo's scales and the N column
+// scales.  Offsets in bytes; every region starts 16-byte aligned.
+template <class R>
+struct FlatSmem {
+  int w, in, sc, scale, end;
+  __host__ __device__ FlatSmem(int cin, int n) {
+    const int cw = halo_words<R>(cin);
+    w = 0;
+    in = w + ((cw * n * (int)sizeof(typename R::SW) + 15) & ~15);
+    sc = in + NHALO * cw * (int)sizeof(typename R::X);
+    scale = sc + (R::KPACK > 1 ? ((NHALO * 4 + 15) & ~15) : 0);
+    end = scale + (R::KPACK > 1 ? n * 4 : 0);
+  }
+};
+
+// The nine taps of a flat kernel's pixel: per tap, stage its weights,
+// then tap_fold.
+template <class R, int N>
+__device__ __forceinline__ void conv_taps(const typename R::W* __restrict__ w,
+                                          const float* __restrict__ wscale,
+                                          char* smem, const FlatSmem<R>& sm,
+                                          int cin, int py, int px,
+                                          float (&acc)[N]) {
+  auto* s_w = reinterpret_cast<typename R::SW*>(smem + sm.w);
+  const auto* s_in = reinterpret_cast<const typename R::X*>(smem + sm.in);
+  const float* s_sc = reinterpret_cast<const float*>(smem + sm.sc);
+  float* s_scale = reinterpret_cast<float*>(smem + sm.scale);
+  if constexpr (R::KPACK > 1)
+    for (int c = threadIdx.x; c < N; c += blockDim.x) s_scale[c] = wscale[c];
+  const int cw = halo_words<R>(cin);
+  for (int tap = 0; tap < 9; ++tap) {
+    __syncthreads();  // halo loaded / previous tap's weights consumed
+    stage_slice<R>(w, s_w, cin, N, tap, 1, 0, N);
+    __syncthreads();
+    const int off = (py + tap / 3) * HWD + (px + tap % 3);
+    const float sx = R::KPACK > 1 ? s_sc[off] : 0.f;
+    tap_fold<R, N>(s_in + off, NHALO, s_w, cw, sx, s_scale, tap, acc);
+  }
+}
+
+// The hidden block's epilogue on one pixel: + bias, channel_norm
+// (population variance, sums in channel order), ReLU, stored as float4 to
+// o (COUT contiguous floats).  pre(co) is the pixel's pre-norm conv output
+// of channel co: the thread's registers, or (blocked, ct < C) what the
+// thread wrote to o one channel tile at a time, overwritten in place.  One
+// body for both keeps the flat and the blocked kernels bitwise equal.
+template <int COUT, class Pre>
+__device__ __forceinline__ void norm_relu(Pre pre,
+                                          const float* __restrict__ bias,
+                                          float* o) {
+  float sum = 0.f;
+#pragma unroll
+  for (int co = 0; co < COUT; ++co)
+    sum = __fadd_rn(sum, __fadd_rn(pre(co), bias[co]));
+  const float mu = __fdiv_rn(sum, (float)COUT);
+  float ss = 0.f;
+#pragma unroll
+  for (int co = 0; co < COUT; ++co) {
+    const float d = __fsub_rn(__fadd_rn(pre(co), bias[co]), mu);
+    ss = __fadd_rn(ss, __fmul_rn(d, d));
+  }
+  const float var = __fdiv_rn(ss, (float)COUT);
+  const float rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, 1e-5f)));
+  auto out = [&](int co) {
+    return fmaxf(__fmul_rn(__fsub_rn(__fadd_rn(pre(co), bias[co]), mu), rs),
+                 0.f);
+  };
+  float4* o4 = reinterpret_cast<float4*>(o);
+#pragma unroll
+  for (int q = 0; q < COUT / 4; ++q)
+    o4[q] = make_float4(out(4 * q), out(4 * q + 1), out(4 * q + 2),
+                        out(4 * q + 3));
+}
+
+// One hidden block: SAME 3x3 conv + bias + channel_norm + ReLU.
+template <class R, int COUT>
+__global__ void __launch_bounds__(NPIX)
+conv_norm_relu_kernel(const void* __restrict__ x,
+                      const float* __restrict__ xs,
+                      const typename R::W* __restrict__ w,
+                      const float* __restrict__ wscale,
+                      const float* __restrict__ bias,
+                      float* __restrict__ out, int l, int cin) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const FlatSmem<R> sm(cin, COUT);
+  const int tiles_x = l / TW, tiles = (l / TH) * tiles_x;
+  const long long img = blockIdx.x / tiles;
+  const int t = blockIdx.x % tiles;
+  const int y0 = (t / tiles_x) * TH, x0 = (t % tiles_x) * TW;
+  const int py = threadIdx.x / TW, px = threadIdx.x % TW;
+  load_halo<R, TH, TW>(x, xs, reinterpret_cast<typename R::X*>(smem + sm.in),
+                       reinterpret_cast<float*>(smem + sm.sc), img, y0, x0,
+                       l, cin);
+  float acc[COUT];
+  conv_taps<R, COUT>(w, wscale, smem, sm, cin, py, px, acc);
+  norm_relu<COUT>([&](int co) { return acc[co]; }, bias,
+                  out + ((img * l + y0 + py) * l + x0 + px) * COUT);
+}
+
+// ---- blocked schedule ----------------------------------------------------
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Weight slice of channel tile jt, all nine taps, into s_w (see
+// stage_slice for the layout).  fp32 / bf16 copy rows of CT weights in
+// 16-byte chunks (8 bytes for a bf16 row of 4), with cp.async when
+// `async`; int8 re-lays the bytes into words, synchronously.
+template <class R, int COUT, int CT>
+__device__ __forceinline__ void stage_tile(const typename R::W* __restrict__ w,
+                                           typename R::SW* s_w, int cin,
+                                           int jt, bool async) {
+  if constexpr (std::is_same<R, RI8>::value) {
+    stage_slice<R>(w, s_w, cin, COUT, 0, 9, jt * CT, CT);
+  } else {
+    using W = typename R::W;
+    constexpr int ROW = CT * (int)sizeof(W);
+    constexpr int CHUNK = ROW < 16 ? ROW : 16;
+    constexpr int E = CHUNK / (int)sizeof(W);  // weights per chunk
+    static_assert(CHUNK == 8 || CHUNK == 16, "rows of 8 or 16n bytes");
+    const int n = 9 * cin * (CT / E);
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int r = e / (CT / E), q = e % (CT / E);
+      const W* src = w + (long long)r * COUT + jt * CT + E * q;
+      W* dst = s_w + r * CT + E * q;
+      if constexpr (CHUNK == 16) {
+        if (async)
+          cp_async16(dst, src);
+        else
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        if (async)
+          cp_async8(dst, src);
+        else
+          *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+      }
+    }
+  }
+}
+
+// Shared memory of the blocked kernel: one or two weight slices of
+// (9 * cw, CT), the halo (BNHALO, cw), and for int8 the halo's scales and
+// the CT column scales.  Offsets in bytes, 16-byte aligned regions.
+template <class R, int CT>
+struct BlockedSmem {
+  int wsz, w, in, sc, scale, end;
+  __host__ __device__ BlockedSmem(int cin, bool two) {
+    const int cw = halo_words<R>(cin);
+    wsz = 9 * cw * CT;  // elements of one slice
+    w = 0;
+    in = w + (((two ? 2 : 1) * wsz * (int)sizeof(typename R::SW) + 15) & ~15);
+    sc = in + BNHALO * cw * (int)sizeof(typename R::X);
+    scale = sc + (R::KPACK > 1 ? ((BNHALO * 4 + 15) & ~15) : 0);
+    end = scale + (R::KPACK > 1 ? CT * 4 : 0);
+  }
+};
+
+// One hidden block on the blocked schedule (see the header): grid
+// (ceil(b / bb) * tiles), 256 threads.
+template <class R, int COUT, int CT>
+__global__ void __launch_bounds__(BNPIX)
+conv_blocked_kernel(const void* __restrict__ x, const float* __restrict__ xs,
+                    const typename R::W* __restrict__ w,
+                    const float* __restrict__ wscale,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int b, int l, int cin, int bb, int db) {
+  using SW = typename R::SW;
+  constexpr int NT = COUT / CT;  // channel tiles
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const bool two = db && NT > 1;
+  const BlockedSmem<R, CT> sm(cin, two);
+  SW* s_w0 = reinterpret_cast<SW*>(smem + sm.w);
+  auto* s_in = reinterpret_cast<typename R::X*>(smem + sm.in);
+  float* s_sc = reinterpret_cast<float*>(smem + sm.sc);
+  float* s_scale = reinterpret_cast<float*>(smem + sm.scale);
+  const int cw = halo_words<R>(cin);
+  const int tiles_x = l / BTW, tiles = (l / BTH) * tiles_x;
+  const int img0 = (blockIdx.x / tiles) * bb;
+  const int t = blockIdx.x % tiles;
+  const int y0 = (t / tiles_x) * BTH, x0 = (t % tiles_x) * BTW;
+  const int py = threadIdx.x / BTW, px = threadIdx.x % BTW;
+  const int nimg = min(bb, b - img0);
+  if (two) {
+    stage_tile<R, COUT, CT>(w, s_w0, cin, 0, true);
+    cp_async_commit();
+  }
+  for (int jt = 0; jt < NT; ++jt) {
+    SW* s_w = s_w0 + (two ? (jt & 1) * sm.wsz : 0);
+    __syncthreads();  // every thread is done with the buffers refilled next
+    if constexpr (R::KPACK > 1)
+      for (int c = threadIdx.x; c < CT; c += blockDim.x)
+        s_scale[c] = wscale[jt * CT + c];
+    if (two) {
+      if (jt + 1 < NT) {
+        stage_tile<R, COUT, CT>(w, s_w0 + ((jt + 1) & 1) * sm.wsz, cin,
+                                jt + 1, true);
+        cp_async_commit();
+        cp_async_wait<1>();  // this tile's slice has landed
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      stage_tile<R, COUT, CT>(w, s_w, cin, jt, false);
+    }
+    for (int i = 0; i < nimg; ++i) {
+      const long long img = img0 + i;
+      __syncthreads();  // weights visible / previous image's halo consumed
+      load_halo<R, BTH, BTW>(x, xs, s_in, s_sc, img, y0, x0, l, cin);
+      __syncthreads();
+      float acc[CT];
+      for (int tap = 0; tap < 9; ++tap) {
+        const int off = (py + tap / 3) * BHWD + (px + tap % 3);
+        const float sx = R::KPACK > 1 ? s_sc[off] : 0.f;
+        tap_fold<R, CT>(s_in + off, BNHALO, s_w + tap * cw * CT, cw, sx,
+                        s_scale, tap, acc);
+      }
+      float* o = out + ((img * l + y0 + py) * l + x0 + px) * COUT;
+      if constexpr (NT == 1) {
+        norm_relu<CT>([&](int co) { return acc[co]; }, bias, o);
+      } else {
+        float4* o4 = reinterpret_cast<float4*>(o + jt * CT);
+#pragma unroll
+        for (int q = 0; q < CT / 4; ++q)
+          o4[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                              acc[4 * q + 3]);
+      }
+    }
+  }
+  if constexpr (NT > 1) {
+    for (int i = 0; i < nimg; ++i) {
+      const long long img = img0 + i;
+      float* o = out + ((img * l + y0 + py) * l + x0 + px) * COUT;
+      norm_relu<COUT>([o](int co) { return o[co]; }, bias, o);
+    }
+  }
+}
+
+// to_bits conv + bias, reduced over the tile's pixels into a GAP partial;
+// with the correlation bank, also the tile's highpass(tiles) . corr
+// partial.  Partials are (b * tiles, NB), tile-major within an image.
+template <class R, int NB>
+__global__ void __launch_bounds__(NPIX)
+conv_gap_corr_kernel(const void* __restrict__ x, const float* __restrict__ xs,
+                     const typename R::W* __restrict__ w,
+                     const float* __restrict__ wscale,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ tiles_in,
+                     const typename R::H* __restrict__ corr,
+                     float* __restrict__ part_gap,
+                     float* __restrict__ part_corr, int l, int cin,
+                     int has_corr) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const FlatSmem<R> sm(cin, NB);
+  float* s_red = reinterpret_cast<float*>(smem + ((sm.end + 15) & ~15));
+  const int tiles_x = l / TW, tiles = (l / TH) * tiles_x;
+  const long long img = blockIdx.x / tiles;
+  const int t = blockIdx.x % tiles;
+  const int y0 = (t / tiles_x) * TH, x0 = (t % tiles_x) * TW;
+  const int py = threadIdx.x / TW, px = threadIdx.x % TW;
+  load_halo<R, TH, TW>(x, xs, reinterpret_cast<typename R::X*>(smem + sm.in),
+                       reinterpret_cast<float*>(smem + sm.sc), img, y0, x0,
+                       l, cin);
+  float acc[NB];
+  conv_taps<R, NB>(w, wscale, smem, sm, cin, py, px, acc);
+#pragma unroll
+  for (int co = 0; co < NB; ++co)
+    s_red[threadIdx.x * (NB + 1) + co] = __fadd_rn(acc[co], bias[co]);
+  __syncthreads();
+  for (int co = threadIdx.x; co < NB; co += blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < NPIX; ++p) s = __fadd_rn(s, s_red[p * (NB + 1) + co]);
+    part_gap[(long long)blockIdx.x * NB + co] = s;
+  }
+  if (!has_corr) return;
+  // highpass = tiles - box3x3(tiles): the nine zero-padded views folded
+  // left in [ky, kx] order, times float(1/9) (the reference multiplies),
+  // then rounded to the correlation bank's precision
+  float* s_hp = reinterpret_cast<float*>(smem);  // the weights are done
+  __syncthreads();
+  const float* ti = tiles_in + img * l * l * 3;
+  const int gy = y0 + py, gx = x0 + px;
+  for (int c = 0; c < 3; ++c) {
+    float box = 0.f;
+    for (int tap = 0; tap < 9; ++tap) {
+      const int sy = gy + tap / 3 - 1, sx = gx + tap % 3 - 1;
+      float v = 0.f;
+      if (sy >= 0 && sy < l && sx >= 0 && sx < l)
+        v = ti[((long long)sy * l + sx) * 3 + c];
+      box = tap == 0 ? v : __fadd_rn(box, v);
+    }
+    const float center = ti[((long long)gy * l + gx) * 3 + c];
+    s_hp[threadIdx.x * 3 + c] = round_to<typename R::H>(
+        __fsub_rn(center, __fmul_rn(box, 1.0f / 9.0f)));
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < NB; n += blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < NPIX; ++p) {
+      const long long gp = (long long)(y0 + p / TW) * l + x0 + p % TW;
+      const typename R::H* cp = corr + (gp * NB + n) * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s = fmaf(s_hp[p * 3 + c], to_f(cp[c]), s);
+    }
+    part_corr[(long long)blockIdx.x * NB + n] = s;
+  }
+}
+
+// Per image: GAP = (sum of the tile partials) / l^2, head as
+// broadcast-multiply + sum over K (operands at the head's precision,
+// products and sums fp32), + head bias, + corr * corr_scale.
+template <class H, int NB>
+__global__ void head_kernel(const float* __restrict__ part_gap,
+                            const float* __restrict__ part_corr,
+                            const H* __restrict__ head_w,
+                            const float* __restrict__ head_b,
+                            const float* __restrict__ corr_scale,
+                            float* __restrict__ logits,
+                            float* __restrict__ embed, int l, int tiles,
+                            int has_corr) {
+  __shared__ float g[NB];
+  const long long img = blockIdx.x;
+  for (int n = threadIdx.x; n < NB; n += blockDim.x) {
+    float s = 0.f;
+    for (int t = 0; t < tiles; ++t)
+      s = __fadd_rn(s, part_gap[(img * tiles + t) * NB + n]);
+    g[n] = __fdiv_rn(s, (float)(l * l));
+    if (embed != nullptr) embed[img * NB + n] = g[n];
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < NB; n += blockDim.x) {
+    float acc = 0.f;
+    for (int k = 0; k < NB; ++k)
+      acc = __fadd_rn(acc, __fmul_rn(round_to<H>(g[k]),
+                                     to_f(head_w[k * NB + n])));
+    float out = __fadd_rn(acc, head_b[n]);
+    if (has_corr) {
+      float cs = 0.f;
+      for (int t = 0; t < tiles; ++t)
+        cs = __fadd_rn(cs, part_corr[(img * tiles + t) * NB + n]);
+      out = __fadd_rn(out, __fmul_rn(cs, corr_scale[n]));
+    }
+    logits[img * NB + n] = out;
+  }
+}
+
+// ---- launchers -------------------------------------------------------------
+template <class K>
+inline cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The host side of one rung: every launcher takes the rung's pointers as
+// void* (x: fp32 activations, or int8 words with their scales xs) and
+// returns cudaGetLastError() of its launch.  Members are defined out of
+// the class, so they are not inline and `extern template` keeps a rung's
+// kernels in its own source.
+template <class R>
+struct Extractor {
+  using W = typename R::W;
+  template <int COUT>
+  static int conv(const void* x, const float* xs, const void* w,
+                  const float* wscale, const float* bias, float* out, int b,
+                  int l, int cin, cudaStream_t stream);
+  static int conv_any(const void* x, const float* xs, const void* w,
+                      const float* wscale, const float* bias, float* out,
+                      int b, int l, int cin, int cout, cudaStream_t stream);
+  template <int COUT, int CT>
+  static int blocked(const void* x, const float* xs, const void* w,
+                     const float* wscale, const float* bias, float* out,
+                     int b, int l, int cin, int bb, int db,
+                     cudaStream_t stream);
+  static int blocked_any(const void* x, const float* xs, const void* w,
+                         const float* wscale, const float* bias, float* out,
+                         int b, int l, int cin, int cout, int bb, int ct,
+                         int db, cudaStream_t stream);
+  static int gap_corr(const void* x, const float* xs, const void* w,
+                      const float* wscale, const float* bias,
+                      const float* tiles, const void* corr, float* part_gap,
+                      float* part_corr, int b, int l, int cin, int n_bits,
+                      int has_corr, cudaStream_t stream);
+  static int head(const float* part_gap, const float* part_corr,
+                  const void* head_w, const float* head_b,
+                  const float* corr_scale, float* logits, float* embed, int b,
+                  int l, int n_bits, int has_corr, cudaStream_t stream);
+};
+
+template <class R>
+template <int COUT>
+int Extractor<R>::conv(const void* x, const float* xs, const void* w,
+                       const float* wscale, const float* bias, float* out,
+                       int b, int l, int cin, cudaStream_t stream) {
+  const int blocks = b * (l / TH) * (l / TW);
+  const size_t smem = FlatSmem<R>(cin, COUT).end;
+  cudaError_t err = set_smem(conv_norm_relu_kernel<R, COUT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  conv_norm_relu_kernel<R, COUT><<<blocks, NPIX, smem, stream>>>(
+      x, xs, static_cast<const W*>(w), wscale, bias, out, l, cin);
+  return (int)cudaGetLastError();
+}
+
+template <class R>
+int Extractor<R>::conv_any(const void* x, const float* xs, const void* w,
+                           const float* wscale, const float* bias, float* out,
+                           int b, int l, int cin, int cout,
+                           cudaStream_t stream) {
+  switch (cout) {
+    case 16: return conv<16>(x, xs, w, wscale, bias, out, b, l, cin, stream);
+    case 32: return conv<32>(x, xs, w, wscale, bias, out, b, l, cin, stream);
+    case 64: return conv<64>(x, xs, w, wscale, bias, out, b, l, cin, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <class R>
+template <int COUT, int CT>
+int Extractor<R>::blocked(const void* x, const float* xs, const void* w,
+                          const float* wscale, const float* bias, float* out,
+                          int b, int l, int cin, int bb, int db,
+                          cudaStream_t stream) {
+  const bool two = db && COUT / CT > 1;
+  const int blocks = (b + bb - 1) / bb * (l / BTH) * (l / BTW);
+  const size_t smem = BlockedSmem<R, CT>(cin, two).end;
+  cudaError_t err = set_smem(conv_blocked_kernel<R, COUT, CT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  conv_blocked_kernel<R, COUT, CT><<<blocks, BNPIX, smem, stream>>>(
+      x, xs, static_cast<const W*>(w), wscale, bias, out, b, l, cin, bb, db);
+  return (int)cudaGetLastError();
+}
+
+template <class R>
+int Extractor<R>::blocked_any(const void* x, const float* xs, const void* w,
+                              const float* wscale, const float* bias,
+                              float* out, int b, int l, int cin, int cout,
+                              int bb, int ct, int db, cudaStream_t stream) {
+  if (bb < 1) return (int)cudaErrorInvalidValue;
+#define QR_BLOCKED(CO, CTV)                                                 \
+  if (cout == CO && ct == CTV)                                              \
+    return blocked<CO, CTV>(x, xs, w, wscale, bias, out, b, l, cin, bb, db, \
+                            stream);
+  QR_BLOCKED(16, 16) QR_BLOCKED(16, 8) QR_BLOCKED(16, 4)
+  QR_BLOCKED(32, 32) QR_BLOCKED(32, 16) QR_BLOCKED(32, 8) QR_BLOCKED(32, 4)
+  QR_BLOCKED(64, 64) QR_BLOCKED(64, 32) QR_BLOCKED(64, 16) QR_BLOCKED(64, 8)
+  QR_BLOCKED(64, 4)
+#undef QR_BLOCKED
+  return (int)cudaErrorInvalidValue;
+}
+
+// n_bits == 60 (the RS(15,12) GF(16) codeword)
+template <class R>
+int Extractor<R>::gap_corr(const void* x, const float* xs, const void* w,
+                           const float* wscale, const float* bias,
+                           const float* tiles, const void* corr,
+                           float* part_gap, float* part_corr, int b, int l,
+                           int cin, int n_bits, int has_corr,
+                           cudaStream_t stream) {
+  constexpr int NB = 60;
+  if (n_bits != NB) return (int)cudaErrorInvalidValue;
+  const int blocks = b * (l / TH) * (l / TW);
+  const size_t smem = ((FlatSmem<R>(cin, NB).end + 15) & ~15) +
+                      sizeof(float) * NPIX * (NB + 1);
+  cudaError_t err = set_smem(conv_gap_corr_kernel<R, NB>, smem);
+  if (err != cudaSuccess) return (int)err;
+  conv_gap_corr_kernel<R, NB><<<blocks, NPIX, smem, stream>>>(
+      x, xs, static_cast<const W*>(w), wscale, bias, tiles,
+      static_cast<const typename R::H*>(corr), part_gap, part_corr, l, cin,
+      has_corr);
+  return (int)cudaGetLastError();
+}
+
+template <class R>
+int Extractor<R>::head(const float* part_gap, const float* part_corr,
+                       const void* head_w, const float* head_b,
+                       const float* corr_scale, float* logits, float* embed,
+                       int b, int l, int n_bits, int has_corr,
+                       cudaStream_t stream) {
+  constexpr int NB = 60;
+  if (n_bits != NB) return (int)cudaErrorInvalidValue;
+  const int tiles = (l / TH) * (l / TW);
+  head_kernel<typename R::H, NB><<<b, 64, 0, stream>>>(
+      part_gap, part_corr, static_cast<const typename R::H*>(head_w), head_b,
+      corr_scale, logits, embed, l, tiles, has_corr);
+  return (int)cudaGetLastError();
+}
+
+// the lower rungs are instantiated in their own sources
+extern template struct Extractor<RBF16>;
+extern template struct Extractor<RI8>;
+
+}  // namespace qr

@@ -53,11 +53,13 @@ def fused_tile_preprocess(raw: torch.Tensor, offsets: torch.Tensor, *,
 
 def fused_extractor(tiles: torch.Tensor, packed: dict, schedule=None,
                     with_embed: bool = False):
-    """Fused fp32 decode: tiles (b, l, l, 3) -> (b, n_bits) logits, plus
-    the GAP embedding when ``with_embed``.  ``schedule`` None runs the
-    flat kernel; a ``kernels.autotune.Schedule`` (anything with
-    ``batch_block`` / ``channel_tile`` / ``double_buffer``) the blocked
-    one, whose logits are bitwise the flat kernel's on the card."""
+    """Fused decode: tiles (b, l, l, 3) -> (b, n_bits) logits, plus the
+    GAP embedding when ``with_embed``.  ``packed`` is
+    ``extractor.pack_params(params, dtype)``; its dtype picks the fp32,
+    bf16 or int8 rung.  ``schedule`` None runs the flat kernel; a
+    ``kernels.autotune.Schedule`` (anything with ``batch_block`` /
+    ``channel_tile`` / ``double_buffer``) the blocked one, whose logits
+    are bitwise the flat kernel's on the card at every rung."""
     cpu = _on_cpu(tiles, "fused_extractor")
     if schedule is None:
         fn = _fx.fused_extractor_plain if cpu else _fx.fused_extractor_cuda

@@ -1,10 +1,15 @@
 """Host-side interpolation matrices shared by the ingest kernels and
-their plain versions (counterpart of ``repro.kernels.ref``; the plain
-versions beside each kernel are the port's oracles, the others there
-are the JAX package's own)."""
+their plain versions, and the int8 rung's dequantized-weight oracle
+(counterpart of ``repro.kernels.ref``; the plain versions beside each
+kernel are the port's oracles, the others there are the JAX package's
+own)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.core.extractor import (extractor_forward_packed,
+                                        pack_params, unpack_params)
 
 
 def resize_matrix(n_in: int, n_out: int, crop_off: int = 0,
@@ -27,3 +32,13 @@ def resize_matrix(n_in: int, n_out: int, crop_off: int = 0,
         M[o, hi_c] += w
     return M
 
+
+def fused_extractor_int8_ref(packed: dict, tiles: torch.Tensor
+                             ) -> torch.Tensor:
+    """Semantic oracle of the int8 rung: the packed fp32 body on the
+    dequantized weights (q * scale).  The rung also quantizes each
+    activation row, so it agrees with this oracle at the quantization
+    noise (~1/127 of a row's largest value per tap), not bitwise — the
+    JAX package holds its rung within atol 0.15, rtol 0.05 of it."""
+    return extractor_forward_packed(pack_params(unpack_params(packed),
+                                                "fp32"), tiles)

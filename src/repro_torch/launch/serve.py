@@ -14,23 +14,24 @@ The configuration flags carry the reference's meanings: ``--mode``
 (``sequential`` | ``tiled`` | ``qrmark``), ``--rs-mode`` (``device`` |
 ``cpu_pool`` | ``cpu_sync``), ``--staged-ingest`` (full-image ingest,
 then tile selection), ``--unfused-decode`` (the plain extractor graph),
-``--schedule`` (``flat`` | ``auto`` | ``bb<N>-ct<N>[-db]``), and
-``--autotune`` (sweep the blocked schedules into the cache at
-``--autotune-cache`` before building the pipeline, then serve with
-``auto``).
+``--decode-dtype`` (``fp32`` | ``bf16`` | ``int8``: the fused decode's
+rung), ``--schedule`` (``flat`` | ``auto`` | ``bb<N>-ct<N>[-db]``), and
+``--autotune`` (sweep the blocked schedules at that dtype into the cache
+at ``--autotune-cache`` before building the pipeline, then serve with
+``auto``, which reads that dtype's entry).
 
 Runs on the card by default; ``--device cpu`` runs the plain versions.
 Flags of the reference launcher that need the lane executor,
-allocator, scheduler, online server, fleet, sharding, escalation,
-another precision or the serving cache are rejected by argparse as
-unrecognized, never ignored.  Prints a ``ServiceReport``-shaped JSON
+allocator, scheduler, online server, fleet, sharding, escalation or the
+serving cache are rejected by argparse as unrecognized, never
+ignored.  Prints a ``ServiceReport``-shaped JSON
 object (``allocation`` and ``lanes`` null: no lane allocation runs
 here).
 
     python -m repro_torch.launch.serve --batches 3 --batch 32 \
         --img 256 --tile 64 [--mode M] [--rs-mode R] [--staged-ingest] \
-        [--unfused-decode] [--schedule S] [--autotune] \
-        [--autotune-cache PATH] [--ragged] [--device cuda|cpu]
+        [--unfused-decode] [--decode-dtype fp32|bf16|int8] [--schedule S] \
+        [--autotune] [--autotune-cache PATH] [--ragged] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -71,9 +72,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         description="Offline batch detection service on the PyTorch port",
         epilog="Flags of the reference launcher that need the lane "
                "executor, allocator, scheduler, online server, fleet, "
-               "sharding, escalation, another precision or the serving "
-               "cache are not ported yet (ROADMAP.md queue 1 items 9-13) "
-               "and are rejected as unrecognized.",
+               "sharding, escalation or the serving cache are not ported "
+               "yet (ROADMAP.md queue 1 items 9, 11-13) and are rejected "
+               "as unrecognized.",
         allow_abbrev=False)
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--batch", type=int, default=32)
@@ -91,6 +92,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--unfused-decode", action="store_true",
                     help="disable the fused extractor kernel (decode "
                          "runs the plain extractor graph)")
+    ap.add_argument("--decode-dtype", default="fp32",
+                    choices=("fp32", "bf16", "int8"),
+                    help="fused-decode precision: fp32; bf16 (bf16 "
+                         "operands, fp32 sums); int8 (per-channel weight "
+                         "scales, per-pixel activation quantization, exact "
+                         "integer tap dots; RS absorbs the extra bit noise)")
     ap.add_argument("--schedule", default="flat",
                     help="decode kernel schedule: 'flat', 'auto' (winner "
                          "from the autotune cache), or an explicit "
@@ -131,15 +138,17 @@ def build_pipeline(args) -> DetectionPipeline:
     schedule = args.schedule
     if args.autotune:
         packed = pack_params(params_from_numpy(
-            params, resolve_device(args.device)), "fp32")
+            params, resolve_device(args.device)), args.decode_dtype)
         autotune_lib.autotune(packed, tile=args.tile, batch=args.batch,
-                              dtype="fp32", cache_path=args.autotune_cache)
+                              dtype=args.decode_dtype,
+                              cache_path=args.autotune_cache)
         schedule = "auto"
     cfg = DetectionConfig(tile=args.tile, img_size=args.img,
                           resize_src=args.img + args.img // 8,
                           mode=args.mode, rs_mode=args.rs_mode,
                           tile_first=not args.staged_ingest,
                           fused_decode=not args.unfused_decode,
+                          decode_dtype=args.decode_dtype,
                           decode_schedule=schedule,
                           autotune_cache=args.autotune_cache)
     return DetectionPipeline(cfg, params, device=args.device)

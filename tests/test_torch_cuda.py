@@ -8,10 +8,14 @@ machine with only PyTorch:
 Tolerances: ingest 1e-5 absolute (a few float32 ulps on values in about
 [-2.2, 2.7]); extractor logits and embedding 1e-4 * (1 + max|ref|)
 (the kernel and cuBLAS accumulate the fp32 tap dots in other orders);
-RS outputs exactly equal.  Between kernels of the port the contracts
-are exact: staged ingest (full-image kernel, then the tile gather)
-equals tile-first ingest, and the blocked decode kernel equals the flat
-one, bit for bit, on every candidate schedule.
+at the bf16 and int8 rungs 0.02 absolute (RUNG_ATOL: where the two fp32
+sums of an activation differ by an ulp, its bf16 rounding or int8
+quantization can land one step apart, which moves a logit by up to
+about 1e-3 at full width); RS outputs exactly equal.  Between kernels
+of the port the contracts are exact: staged ingest (full-image kernel,
+then the tile gather) equals tile-first ingest, and the blocked decode
+kernel equals the flat one, bit for bit, on every candidate schedule
+and channel tile, at every rung.
 """
 import numpy as np
 import pytest
@@ -30,6 +34,7 @@ from repro_torch.kernels import rs_decode as rs
 pytestmark = pytest.mark.gpu
 
 INGEST_ATOL = 1e-5
+RUNG_ATOL = 0.02
 
 
 @pytest.fixture
@@ -224,3 +229,72 @@ def test_new_ops_count_their_launches(dev):
     assert counts["fused_extractor"] == 0
     with pytest.raises(ValueError, match="channel tiles"):
         ops.fused_extractor(tiles, pk, schedule=at.Schedule(1, 12))
+
+
+def _rung_pack(dev, dtype, *, channels, depth, tile, corr=True):
+    return ex.pack_params(ex.params_from_numpy(ex.init_extractor_numpy(
+        0, n_bits=60, channels=channels, depth=depth,
+        tile=tile if corr else 0, bias_scale=0.1), dev), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("b,l,channels,depth,corr", [
+    (5, 16, 16, 3, True), (3, 32, 32, 2, False), (32, 64, 64, 7, True),
+    (1, 64, 64, 7, True)])
+def test_rung_kernel_matches_plain(dev, dtype, b, l, channels, depth, corr):
+    """The bf16 / int8 kernels against their plain versions, logits and
+    GAP embedding; the embedding output leaves the logits as they are."""
+    pk = _rung_pack(dev, dtype, channels=channels, depth=depth, tile=l,
+                    corr=corr)
+    tiles = torch.as_tensor(np.random.default_rng(b).uniform(
+        -2.0, 2.5, (b, l, l, 3)).astype(np.float32)).to(dev)
+    want = fx.fused_extractor_plain(tiles, pk, with_embed=True)
+    got = fx.fused_extractor_cuda(tiles, pk, with_embed=True)
+    alone = fx.fused_extractor_cuda(tiles, pk)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, got[0])
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=RUNG_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("channels", [16, 32, 64])
+def test_rung_blocked_equals_flat_every_channel_tile(dev, dtype, channels):
+    """Every channel tile the blocked kernel is built for, with and
+    without double buffering, at a ragged batch block: bitwise the flat
+    kernel at the rung; rows do not depend on the batch."""
+    pk = _rung_pack(dev, dtype, channels=channels, depth=2, tile=32)
+    tiles = torch.as_tensor(np.random.default_rng(channels).uniform(
+        -2.0, 2.5, (5, 32, 32, 3)).astype(np.float32)).to(dev)
+    flat = fx.fused_extractor_cuda(tiles, pk, with_embed=True)
+    part = fx.fused_extractor_cuda(tiles[1:4].contiguous(), pk)
+    torch.cuda.synchronize()
+    assert torch.equal(part, flat[0][1:4])
+    for ct in fx.blocked_channel_tiles(channels):
+        for db in (True, False):
+            got = fx.fused_extractor_blocked_cuda(
+                tiles, pk, batch_block=2, channel_tile=ct, double_buffer=db,
+                with_embed=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], flat[0]), (ct, db)
+            assert torch.equal(got[1], flat[1]), (ct, db)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_rung_ops_count_their_launches(dev, dtype):
+    """ops.fused_extractor runs a rung's pack through the kernels: one
+    count per call on the flat or the blocked counter."""
+    pk = _rung_pack(dev, dtype, channels=16, depth=2, tile=16)
+    tiles = torch.zeros((2, 16, 16, 3), device=dev)
+    ops.reset_launch_counts()
+    ops.fused_extractor(tiles, pk)
+    ops.fused_extractor(tiles, pk, schedule=at.Schedule(2, 8, True))
+    ops.fused_extractor(tiles, pk, schedule=at.Schedule(1, 0, False))
+    counts = ops.launch_counts()
+    assert counts["fused_extractor"] == 1
+    assert counts["fused_extractor_blocked"] == 2
+    with pytest.raises(ValueError, match="pack"):
+        bad = dict(pk, head=dict(pk["head"], w=pk["head"]["w"].double()))
+        ops.fused_extractor(tiles, bad)

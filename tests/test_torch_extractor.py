@@ -125,5 +125,10 @@ def test_init_extractor_structure_matches_reference():
 
 
 def test_other_dtypes_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ex.pack_params(ex.params_from_numpy(_params(tile=0)), "bf16")
+    """A dtype outside the precision ladder raises KeyError, as in the
+    reference."""
+    p = _params(tile=0)
+    with pytest.raises(KeyError):
+        jex.pack_params(jax.tree.map(jnp.asarray, p), "fp16")
+    with pytest.raises(KeyError):
+        ex.pack_params(ex.params_from_numpy(p), "fp16")

@@ -115,6 +115,32 @@ def test_autotune_miss_sweeps_then_hits(tmp_path):
     assert len(logs) == 1 and logs[0].startswith("[autotune] cache hit")
 
 
+def test_each_dtype_has_its_own_cache_entry(tmp_path, capsys):
+    """An int8 sweep fills the int8 key beside the fp32 one; "auto"
+    resolves int8 from it, silently, and still misses at bf16; a dtype
+    that is not the pack's is refused instead of poisoning a key."""
+    path = tmp_path / "sched.json"
+    p = ex.params_from_numpy(_np_params())
+    fp32 = at.autotune(ex.pack_params(p), tile=L, batch=2, dtype="fp32",
+                       cache_path=path, iters=1, quick=True, log=str)
+    pk8 = ex.pack_params(p, "int8")
+    won = at.autotune(pk8, tile=L, batch=2, dtype="int8", cache_path=path,
+                      iters=1, quick=True, log=str)
+    keys = sorted(json.loads(path.read_text())["entries"])
+    assert keys == [f"cpu|{d}|t{L}|c{C}|d{DEPTH}|n60"
+                    for d in ("fp32", "int8")]
+    kw = dict(tile=L, channels=C, depth=DEPTH, n_bits=60, cache_path=path)
+    capsys.readouterr()
+    assert at.resolve_schedule("auto", dtype="int8", **kw) == won
+    assert at.resolve_schedule("auto", dtype="fp32", **kw) == fp32
+    assert capsys.readouterr().err == ""
+    assert at.resolve_schedule("auto", dtype="bf16", **kw) is None
+    assert "no cached schedule for cpu|bf16" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="does not match the pack"):
+        at.autotune(pk8, tile=L, batch=2, dtype="fp32", cache_path=path,
+                    force=True, log=str)
+
+
 def test_corrupt_and_stale_caches_fall_back_loudly(tmp_path, capsys):
     bad = tmp_path / "bad.json"
     bad.write_text("{not json")

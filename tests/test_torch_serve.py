@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.extractor import packed_dtype
 from repro_torch.launch import serve
 
 torch.set_num_threads(1)
@@ -50,7 +51,7 @@ def test_ragged_batches():
 
 @pytest.mark.parametrize("flags", [
     ["--lanes", "2"], ["--sharded"], ["--online"], ["--fleet"],
-    ["--decode-dtype=bf16"], ["--escalate-tiles", "2"], ["--cache-exact"]])
+    ["--escalate-margin=0.5"], ["--escalate-tiles", "2"], ["--cache-exact"]])
 def test_unported_flags_are_rejected(capsys, flags):
     with pytest.raises(SystemExit) as exc:
         serve.parse_args([*flags, *SMALL])
@@ -61,7 +62,8 @@ def test_unported_flags_are_rejected(capsys, flags):
 
 @pytest.mark.parametrize("flags,want", [
     ([], dict(mode="qrmark", rs_mode="device", tile_first=True,
-              fused_decode=True, decode_schedule="flat")),
+              fused_decode=True, decode_schedule="flat",
+              decode_dtype="fp32")),
     (["--mode", "sequential", "--rs-mode", "cpu_sync"],
      dict(mode="sequential", rs_mode="cpu_sync")),
     (["--mode", "tiled", "--rs-mode", "cpu_pool"],
@@ -69,14 +71,21 @@ def test_unported_flags_are_rejected(capsys, flags):
     (["--staged-ingest", "--unfused-decode"],
      dict(tile_first=False, fused_decode=False)),
     (["--schedule", "bb4-ct8-db", "--autotune-cache", "x.json"],
-     dict(decode_schedule="bb4-ct8-db", autotune_cache="x.json"))])
+     dict(decode_schedule="bb4-ct8-db", autotune_cache="x.json")),
+    (["--decode-dtype", "bf16"], dict(decode_dtype="bf16")),
+    (["--decode-dtype", "int8", "--schedule", "bb2-ct16-db"],
+     dict(decode_dtype="int8", decode_schedule="bb2-ct16-db"))])
 def test_configuration_flags(flags, want):
     """The reference launcher's configuration flags, with its meanings;
-    the pipeline is built and closed (the pool's threads joined)."""
+    the pipeline is built (its decode weights packed at the dtype) and
+    closed (the pool's threads joined)."""
     pipe = serve.build_pipeline(serve.parse_args([*flags, *SMALL]))
     try:
         for k, v in want.items():
             assert getattr(pipe.cfg, k) == v, k
+        if pipe.stages.fused_decode:
+            assert packed_dtype(pipe.stages.packed_params) == \
+                pipe.cfg.decode_dtype
     finally:
         pipe.close()
 
@@ -84,6 +93,12 @@ def test_configuration_flags(flags, want):
 def test_mode_choices_are_checked(capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(["--mode", "fast", *SMALL])
+    assert "invalid choice" in capsys.readouterr().err
+
+
+def test_decode_dtype_choices_are_checked(capsys):
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--decode-dtype", "fp16", *SMALL])
     assert "invalid choice" in capsys.readouterr().err
 
 
@@ -99,3 +114,21 @@ def test_autotune_flag_sweeps_then_serves_auto(tmp_path, capsys):
     assert list(entries) == ["cpu|fp32|t16|c64|d7|n60"]
     rep = json.loads(out.out[out.out.index("{\n"):])
     assert rep["images"] == 2
+
+
+def test_int8_autotune_serves_auto_from_its_own_entry(tmp_path, capsys):
+    """--decode-dtype int8 --autotune sweeps the int8 key of a cache that
+    already holds an fp32 entry, then serves "auto" from the int8 one."""
+    cache = tmp_path / "sched.json"
+    other = "cpu|fp32|t16|c64|d7|n60"
+    cache.write_text(json.dumps({"version": 1, "entries": {
+        other: {"schedule": "bb4-ct0"}}}))
+    serve.main(["--batches", "1", "--batch", "2", "--decode-dtype", "int8",
+                "--autotune", "--autotune-cache", str(cache), *SMALL])
+    out = capsys.readouterr()
+    assert "[autotune] cached: cpu|int8|t16|c64|d7|n60" in out.out
+    assert out.err == ""                       # auto hit the cache
+    entries = json.loads(cache.read_text())["entries"]
+    assert sorted(entries) == [other, "cpu|int8|t16|c64|d7|n60"]
+    assert entries[other] == {"schedule": "bb4-ct0"}
+    assert json.loads(out.out[out.out.index("{\n"):])["images"] == 2
