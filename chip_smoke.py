@@ -24,7 +24,10 @@ In order, it
    b=32 and 5, and the serve point at b=1) against their plain
    versions and, bitwise, blocked against flat; call ms of each and the
    ``ptxas -v`` registers and spills; and an int8 sweep into the same
-   cache under its own key;
+   cache under its own key; then the flat fp32 decode's kernels one by
+   one at b=32 (layer 0, a 64 -> 64 block, to_bits + GAP + corr, the
+   head: ms per launch, bound, registers, spills) beside cuDNN's fp32
+   conv2d on the same layer as a yardstick the port never calls;
 4. drives the serve launcher's code path (``repro_torch.launch.serve``)
    at full width for 3 batches of 32 synthetic images, checks that every
    kernel of the path was launched, replays one batch through the plain
@@ -130,10 +133,13 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def call_ms(fn, iters: int = 20) -> float:
+def call_ms(fn, iters: int = 20, reps: int = 1) -> float:
     """Median per-call time as an eager caller sees it: CUDA events
     around each call after warm-up, host work in the wrapper included
-    whenever the card waits for it.  Device time alone by kernel comes
+    whenever the card waits for it.  With ``reps`` > 1 each of the
+    ``iters`` samples times that many back-to-back calls and counts the
+    time per call, so the host's launch cost hides behind the queue
+    unless it exceeds the kernel's.  Device time alone by kernel comes
     from the profiled pass of the serve path."""
     import torch
     for _ in range(3):
@@ -143,10 +149,11 @@ def call_ms(fn, iters: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -588,6 +595,132 @@ def phase_rungs(dev, rng, card: str, cache, regs: dict):
     return out, winner
 
 
+# -- phase 3g: the flat fp32 decode's kernels one by one --------------------
+def clocks_during(fn, seconds: float = 1.0) -> str:
+    """The card's SM clock, its maximum and the power draw, as
+    ``nvidia-smi`` reads them halfway through ``seconds`` of ``fn`` run
+    back to back."""
+    import threading
+    import torch
+    stop = threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+
+    worker = threading.Thread(target=spin)
+    worker.start()
+    try:
+        time.sleep(seconds / 2)
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+             "--format=csv,noheader"], check=True, capture_output=True,
+            text=True, timeout=60).stdout.strip().splitlines()[0]
+    finally:
+        time.sleep(seconds / 2)
+        stop.set()
+        worker.join()
+
+
+def _regs_of(regs: dict, pattern: str):
+    hits = [v for k, v in regs.items() if pattern in k.replace(" ", "")]
+    return hits[0] if len(hits) == 1 else None
+
+
+def phase_decode_parts(dev, rng, card: str, regs: dict):
+    """The fp32 flat decode's CUDA kernels alone at b=32, full width, each
+    on the inputs the decode gives it: layer 0 (cin 3 -> 64), a 64 -> 64
+    hidden block, to_bits + GAP + corr, the head.  Per kernel: ms per
+    launch (``call_ms`` over 10 back-to-back launches), its bound,
+    launches per decode call, the ``ptxas -v`` registers and spill
+    bytes.  Beside them, as a yardstick
+    the port never calls, cuDNN's fp32 conv2d (TF32 off, channels_last)
+    on the same 64 -> 64 layer: the conv alone, without bias, norm or
+    ReLU, so not the kernel's library_ms."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_extractor as fx
+    l, b, C, nb = FULL["tile"], 32, WIDTH["channels"], WIDTH["n_bits"]
+    pk = rung_pack(dev, "fp32")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tiles = torch.as_tensor(rng.uniform(-2.0, 2.5, (b, l, l, 3)).astype(
+        np.float32)).to(dev)
+    blk0, blk1 = pk["blocks"][0], pk["blocks"][1]
+    x1 = fx.conv_block(lib, tiles, blk0, 0, stream)
+    x2 = fx.conv_block(lib, x1, blk1, 0, stream)
+    parts = fx.to_bits_partials(lib, tiles, x2, pk, 0, stream)
+    npix, n_parts = b * l * l, parts[0].shape[0]
+
+    def conv_work(x, blk):
+        cin, cout = x.shape[3], blk["w"].shape[-1]
+        return (4 * (x.numel() + blk["w"].numel() + cout + npix * cout),
+                npix * (2 * 9 * cin * cout + 8 * cout))
+
+    tb = pk["to_bits"]
+    rows = [
+        ("conv layer 0 (3 -> 64)", f"conv_regtile_kernel<qr::RF32,{C},3>",
+         1, lambda: fx.conv_block(lib, tiles, blk0, 0, stream),
+         *conv_work(tiles, blk0)),
+        (f"conv hidden ({C} -> {C})",
+         f"conv_regtile_kernel<qr::RF32,{C},{C}>", WIDTH["depth"] - 1,
+         lambda: fx.conv_block(lib, x1, blk1, 0, stream),
+         *conv_work(x1, blk1)),
+        ("to_bits + GAP + corr", f"gap_corr_regtile_kernel<qr::RF32,{C}>",
+         1, lambda: fx.to_bits_partials(lib, tiles, x2, pk, 0, stream),
+         4 * (x2.numel() + tiles.numel() + tb["w"].numel() + nb +
+              pk["corr"].numel() + 2 * n_parts * nb),
+         npix * (2 * 9 * C * nb + 2 * nb) + npix * 3 * (11 + 2 * nb)),
+        ("head", "head_kernel<float,60>", 1,
+         lambda: fx.head_logits(lib, *parts, pk, 0, l, False, stream),
+         4 * (2 * n_parts * nb + pk["head"]["w"].numel() + 2 * nb + b * nb),
+         b * (2 * nb * nb + 2 * (n_parts // b) * nb + 3 * nb)),
+    ]
+    out = []
+    for name, kernel, launches, fn, n_bytes, n_ops in rows:
+        bound_ms, by = bound(n_bytes, n_ops, PEAK_FP32_S)
+        r = _regs_of(regs, kernel)
+        out.append(dict(name=name, kernel=kernel, launches_per_call=launches,
+                        ms=call_ms(fn, reps=10), bound_ms=bound_ms,
+                        bound_by=by,
+                        registers=None if r is None else r[0],
+                        spill_bytes=None if r is None else r[1] + r[2]))
+    clocks = clocks_during(lambda: fx.conv_block(lib, x1, blk1, 0, stream))
+    # the yardstick: the same 64 -> 64 conv through cuDNN, fp32 throughout
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        xin = x1.permute(0, 3, 1, 2)  # NCHW view of NHWC = channels_last
+        wt = blk1["w"].view(3, 3, C, C).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        y = F.conv2d(xin, wt, padding=1).permute(0, 2, 3, 1)
+        mu = (y + blk1["b"]).mean(-1, keepdim=True)
+        ref = torch.relu((y + blk1["b"] - mu) * torch.rsqrt(
+            ((y + blk1["b"] - mu) ** 2).mean(-1, keepdim=True) + 1e-5))
+        dev_err = float((ref - x2).abs().max())
+        check(dev_err <= 1e-3, f"cuDNN yardstick: its conv + norm differs "
+              f"from the kernel's block by {dev_err}")
+        cudnn_ms = call_ms(lambda: F.conv2d(xin, wt, padding=1), reps=10)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"flat fp32 decode kernels alone, b=32, full width, on {card} "
+          f"(ms per launch, median of 20 samples of 10 launches):")
+    for r in out:
+        print(f"  {r['name']}: {r['ms']:.4f} ms x{r['launches_per_call']}, "
+              f"bound {r['bound_ms']:.4g} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.1%} of it; registers "
+              f"{r['registers']}, spill bytes {r['spill_bytes']}")
+    print(f"  SM clock, max SM clock, power draw during the {C} -> {C} "
+          f"conv back to back: {clocks}")
+    print(f"  yardstick, never called by the port: cuDNN conv2d fp32 (TF32 "
+          f"off, channels_last) {C} -> {C}, conv alone: {cudnn_ms:.4f} ms "
+          f"(+ bias/norm/ReLU in torch within {dev_err:.3g} of the kernel)")
+    return out, cudnn_ms, clocks
+
+
 # -- phase 3c: RS decode ---------------------------------------------------
 def rs_words(rng, n_each: int) -> np.ndarray:
     """Codewords with 0, 1 and 2 symbol errors, and uniform words."""
@@ -983,6 +1116,10 @@ def main() -> int:
         dev, rng, card)
     regs = kernel_registers(log)
     rungs, winner8 = phase_rungs(dev, rng, card, cache, regs)
+    parts, cudnn_ms, clocks = phase_decode_parts(dev, rng, card, regs)
+    phases["fused_extractor"].update(
+        parts=parts, cudnn_conv_yardstick_ms=cudnn_ms,
+        clocks_during_conv=clocks)
     for name, r in phases.items():
         print(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.3g} ms ({r['bound_by']}), max |err| "
@@ -1035,6 +1172,14 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep, "launches": launches[name],
                  **{k: phases[name][k] for k in keys}}
+        if name == "fused_extractor":
+            # each CUDA kernel of the flat decode: its launches in the
+            # main path's run are its launches per call times the calls
+            entry["parts"] = [dict(p, launches=p["launches_per_call"] *
+                                   launches[name])
+                              for p in phases[name]["parts"]]
+            entry["cudnn_conv_yardstick_ms"] = \
+                phases[name]["cudnn_conv_yardstick_ms"]
         if name in rung_launches:
             entry["rungs"] = ["fp32", *RUNGS]
             entry["by_rung"] = {dt: {"launches": rung_launches[name][dt],

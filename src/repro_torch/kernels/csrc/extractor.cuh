@@ -19,82 +19,118 @@
 //
 //   fp32  fp32 tap dots;
 //   bf16  tap-dot inputs and weights rounded to bf16, exact products, fp32
-//         sums; head and correlation: fp32 products of bf16-rounded
-//         operands (the jitted reference keeps them at fp32);
+//         sums (the weights stay bf16 in memory; a block rounds the fp32
+//         activations as its halo lands, so the fp32 FFMA chain runs on
+//         exactly representable products); head and correlation: fp32
+//         products of bf16-rounded operands (the jitted reference keeps
+//         them at fp32; the highpass is computed in fp32, then rounded);
 //   int8  each tap's input row (one input pixel's cin channels, zero for
 //         padding) quantized per row, an exact int8 x int8 -> int32 dot,
 //         dequantized as (y * s_row) * w_scale[co] and folded into the
 //         fp32 sum; head and correlation fp32.
 //
+// The per-output arithmetic is one chain at every rung and in every
+// kernel here, which is what keeps the flat and the blocked schedules
+// bitwise equal and a row's logits independent of its batch: for each
+// output (pixel, column) and each tap, a fresh partial over the input
+// channels in order (`tap_fold`'s chain: 0, then fmaf over ci; int8: the
+// exact dot, dequantized), folded into the accumulator over the taps in
+// [ky, kx] order with __fadd_rn; then `norm_relu` (bias, channel_norm with
+// sums in channel order, ReLU) or, for to_bits, (y + bias) summed per 8x16
+// pixel tile in row-major order.  No split-K, no TF32, no reassociation.
+//
 // What bounds it on the H100: operations.  At l=64, C=64, D=7 one image
-// costs ~2.1 GFLOP; the fp32 rung runs on FFMA (67 TFLOP/s at most), the
-// lower rungs' bounds are the tensor cores' (989 bf16, 1979 int8), which
-// these kernels do not use yet: bf16 runs the fp32 FFMA chain on rounded
-// operands, int8 runs __dp4a (4 multiply-adds per instruction).
+// costs ~2.1 GFLOP.  A 64->64 hidden block at b=32 is 9.73 GFLOP, 0.145 ms
+// at the 67 TFLOP/s FFMA peak; to_bits + GAP + corr 9.08 GFLOP, 0.136 ms.
+// Layer 0 (cin = 3) is bound by bytes: 35 MB (its 64-channel output) at
+// 3.35 TB/s, 0.0105 ms.  The fp32 rung runs on FFMA; the lower rungs'
+// bounds are the tensor cores' (989 bf16, 1979 int8), which these kernels
+// do not use yet: bf16 runs the fp32 FFMA chain on rounded operands, int8
+// runs __dp4a (4 multiply-adds per instruction).
 //
-// Design: one image's fp32 activation is 1 MiB at l=64, C=64 — more than
-// an SM's 227 KB of shared memory — so the TPU's whole-forward-per-step
-// fusion does not carry over.  Instead one direct-conv kernel per layer:
-// a block owns a pixel tile of one image (flat: 8x16) and ALL output
-// channels, one thread per pixel, so channel_norm's reduction over channels
-// stays in the thread's registers and fuses into the epilogue (bias + norm
-// + ReLU).  The block stages its input halo in shared memory (zero padding
-// = SAME) and the weights of one tap (flat) or of all nine taps of an
-// output-channel tile (blocked).  Per tap the thread computes a fresh
-// partial over the input channels (`tap_fold`, the rung's tap primitive,
-// one body for the flat and the blocked kernel) and folds it into its
-// accumulator: the reference's nine tap dots folded left in [ky, kx]
-// order.  Activations go through global memory between layers, in fp32 at
-// every rung.  The last conv (to_bits) kernel reduces its tile's
-// (y + bias) over pixels in a fixed order into a per-tile GAP partial and,
-// when the correlation bank is on, the tile's highpass . corr partial; a
-// small head kernel sums the partials per image in tile order and applies
-// GAP scale, head and corr.  Every reduction has a fixed order, so a row's
-// logits do not depend on the batch it came in.
+// Activations go through global memory between layers, in fp32 at every
+// rung: one image's activation is 1 MiB at l=64, C=64, more than an SM's
+// 227 KB of shared memory, so the TPU's whole-forward-per-step fusion does
+// not carry over.  One direct-conv kernel per layer, then to_bits (which
+// also reduces its tile's GAP and correlation partials) and a small head
+// kernel that sums the partials per image in tile order.
 //
-// Per rung:
-//   bf16  weights stay bf16 in global and shared memory; each activation
-//         is rounded to bf16 as the halo is loaded (layer 0's tiles too)
-//         and kept as a float, so the FFMA chain of the fp32 rung runs on
-//         exactly representable products.  The highpass is computed in
-//         fp32 from the fp32 tiles, then rounded.
-//   int8  a small pass (`quantize_rows_kernel`) quantizes each layer's
-//         input once per pixel: int8 values, four input channels to a
-//         32-bit word (layer 0 pads 3 -> 4 with a zero), and one fp32
-//         scale s = max(amax, 1e-8) * float(1/127) per pixel, q =
-//         rint(x / s) clipped to +-127 (the jitted reference multiplies by
-//         the reciprocal for the scale and divides for q).  The conv
-//         stages the weights re-laid into the same four-channel words
-//         (synchronously: cp.async cannot re-lay bytes) and the per-column
-//         scales, and takes each tap's dot with __dp4a.  A padding pixel
-//         has q = 0, so its tap adds (0 * s) * w_scale = 0.
+// Flat schedule, fp32 and bf16 (`conv_regtile_kernel`,
+// `gap_corr_regtile_kernel`): a register-tiled direct conv.  What held the
+// one-thread-per-pixel design below at 20 % of the FFMA peak was shared
+// memory issue (each input channel cost one LDS.32 of the activation and
+// C/4 LDS.128 weight broadcasts for C FFMA: 17 loads per 64 FFMA at
+// C=64), a barrier pair around every tap's weights with nothing in flight
+// across it, and 128-pixel blocks that refetched a layer's 147 KB of
+// weights 1024 times.  The redesign:
+//   * a block owns a 16x16 pixel tile of one image and every output column
+//     (to_bits: 60 columns, zero-padded to 64 in shared memory; the
+//     padding columns are computed and dropped, they enter no sum);
+//   * a thread owns TM = 8 pixels of one row (columns px0 + 2m) x TN = 8
+//     columns (two float4 groups, interleaved between the block's column
+//     groups so a warp's weight loads hit distinct banks).  The halo keeps
+//     a pixel's input channels contiguous (pitch cin + 4, rows of 20
+//     pixels, so the pixels a warp loads at once fall in distinct bank
+//     quads): per four input channels a thread issues 8 LDS.128 of
+//     activations and 8 LDS.128 of weights for 256 FFMA (16 FFMA per
+//     shared load; was 3.8).  The partial and the accumulator are 2 x 64
+//     registers indexed only by compile-time constants.  The sizes are
+//     measured (tools/torch_regtile_sweep.py; 4 x 16, 4 x 8, 2 x 16 and
+//     unrolls of 1, 2 and 4 were slower);
+//   * the halo is fetched once per block with cp.async (zero-fill for the
+//     SAME padding; bf16 rounds it in place once it has landed; layer 0's
+//     12-byte pixels are loaded synchronously), and the taps' weights
+//     stream through a three-slot ring with cp.async, two taps ahead, so
+//     each tap costs one barrier and the next tap's copy is always in
+//     flight;
+//   * the epilogue stages the pre-norm tile in shared memory (pitch C + 1),
+//     runs `norm_relu` with one thread per pixel in channel order, and
+//     writes the tile out coalesced; to_bits stages (y + bias) and has 120
+//     threads sum the two 8x16 GAP partials and 120 more the correlation
+//     partials, each in the fixed row-major order.
+// Shared memory at C=64: halo 97,920 B + ring 49,152 B, one block (8 warps)
+// per SM.  Layer 0 (cin = 3) runs the same engine; its work is small and
+// its output bytes bound it.
+//
+// int8 flat (`conv_norm_relu_kernel<RI8>`, `conv_gap_corr_kernel<RI8>`):
+// the first design of the flat kernels, kept at this rung until its
+// tensor-core redesign.  A block owns an 8x16 pixel tile and all output
+// channels, one thread per pixel, so channel_norm's reduction stays in the
+// thread's registers; it stages one tap's weights at a time.  A small pass
+// (`quantize_rows_kernel`) quantizes each layer's input once per pixel:
+// int8 values, four input channels to a 32-bit word (layer 0 pads 3 -> 4
+// with a zero), and one fp32 scale s = max(amax, 1e-8) * float(1/127) per
+// pixel, q = rint(x / s) clipped to +-127 (the jitted reference multiplies
+// by the reciprocal for the scale and divides for q).  The conv stages the
+// weights re-laid into the same four-channel words (synchronously:
+// cp.async cannot re-lay bytes) and the per-column scales, and takes each
+// tap's dot with __dp4a.  A padding pixel has q = 0, so its tap adds
+// (0 * s) * w_scale = 0.
 //
 // Blocked schedule, `conv_blocked_kernel`: the same forward re-blocked by
 // a schedule (batch block bb, output-channel tile ct, double_buffer) whose
-// output is bitwise the flat kernel's at every rung.  On the TPU the
+// output is bitwise the flat kernels' at every rung.  On the TPU the
 // schedule sizes VMEM scratch and grid steps; here it sizes what a block
 // stages in shared memory.  A block owns a 16x16 pixel tile (256 threads,
 // one per pixel) of bb images in turn.  For each output-channel tile
 // [j0, j0 + ct) it stages the weight slice of ALL nine taps once and reuses
-// it for the bb images: the flat kernel restages each tap's slice for
-// every 128-pixel tile of every image, and syncs between taps; this one
-// runs the nine taps of an image without a barrier.  With ct < C the
-// (pixel, C) pre-norm result lands in the output buffer, tile by tile, as
-// the reference's (M, C) accumulator scratch, and the epilogue then reads
-// all C channels of the thread's own pixel back; a thread reads only what
-// it wrote, so no barrier is needed.  Fewer channels per pass means fewer
-// registers per thread.  `db` (with ct < C) double-buffers the weight
-// slices: the next channel tile's slice is fetched with cp.async while the
-// current one computes (the int8 rung stages synchronously, so there db
-// only changes the order of the staging).  A ragged batch (bb not dividing
-// b) masks the missing images of the last block: the reference computes
-// zero pad rows and slices them off, which leaves the real rows the same.
-// Bitwise equality with the flat kernel: every output channel goes through
-// the same `tap_fold` on the same staged values and the same left fold
-// over the nine taps, and the epilogue sums over channels in channel
-// order.  The int8 rung keeps it at every channel tile too (the reference
-// is only ulp-close there): its dot is exact and its dequantize is per
-// column.  The to_bits conv, GAP, correlation and head run the flat
+// it for the bb images, and runs the nine taps of an image without a
+// barrier.  With ct < C the (pixel, C) pre-norm result lands in the output
+// buffer, tile by tile, as the reference's (M, C) accumulator scratch, and
+// the epilogue then reads all C channels of the thread's own pixel back; a
+// thread reads only what it wrote, so no barrier is needed.  Fewer
+// channels per pass means fewer registers per thread.  `db` (with ct < C)
+// double-buffers the weight slices: the next channel tile's slice is
+// fetched with cp.async while the current one computes (the int8 rung
+// stages synchronously, so there db only changes the order of the
+// staging).  A ragged batch (bb not dividing b) masks the missing images
+// of the last block: the reference computes zero pad rows and slices them
+// off, which leaves the real rows the same.  Bitwise equality with the
+// flat kernels: every output channel goes through the same chain on the
+// same staged values (bf16: rounded the same way) and the epilogue is the
+// same `norm_relu`.  The int8 rung keeps it at every channel tile too (the
+// reference is only ulp-close there): its dot is exact and its dequantize
+// is per column.  The to_bits conv, GAP, correlation and head run the flat
 // kernels (n_bits is always one full-width tile, as in the reference).
 #pragma once
 
@@ -168,7 +204,9 @@ __host__ __device__ __forceinline__ int halo_words(int cin) {
   return (cin + R::KPACK - 1) / R::KPACK;
 }
 
-constexpr int TH = 8, TW = 16, NPIX = TH * TW;  // flat: one thread per pixel
+// int8 flat kernels: an 8x16 tile, one thread per pixel.  TH x TW is also
+// the tile of the GAP and correlation partials at every rung.
+constexpr int TH = 8, TW = 16, NPIX = TH * TW;
 constexpr int HWD = TW + 2, NHALO = (TH + 2) * HWD;
 constexpr int BTH = 16, BTW = 16, BNPIX = BTH * BTW;  // blocked
 constexpr int BHWD = BTW + 2, BNHALO = (BTH + 2) * BHWD;
@@ -303,7 +341,7 @@ __device__ __forceinline__ void tap_fold(const typename R::X* sp, int nh,
   }
 }
 
-// Shared memory of the flat kernels' conv: one tap's weights (cw, N), the
+// Shared memory of the int8 flat kernels' conv: one tap's weights (cw, N), the
 // halo (NHALO, cw) and, for int8, the halo's scales and the N column
 // scales.  Offsets in bytes; every region starts 16-byte aligned.
 template <class R>
@@ -319,8 +357,8 @@ struct FlatSmem {
   }
 };
 
-// The nine taps of a flat kernel's pixel: per tap, stage its weights,
-// then tap_fold.
+// The nine taps of an int8 flat kernel's pixel: per tap, stage its
+// weights, then tap_fold.
 template <class R, int N>
 __device__ __forceinline__ void conv_taps(const typename R::W* __restrict__ w,
                                           const float* __restrict__ wscale,
@@ -345,15 +383,16 @@ __device__ __forceinline__ void conv_taps(const typename R::W* __restrict__ w,
 }
 
 // The hidden block's epilogue on one pixel: + bias, channel_norm
-// (population variance, sums in channel order), ReLU, stored as float4 to
-// o (COUT contiguous floats).  pre(co) is the pixel's pre-norm conv output
-// of channel co: the thread's registers, or (blocked, ct < C) what the
-// thread wrote to o one channel tile at a time, overwritten in place.  One
-// body for both keeps the flat and the blocked kernels bitwise equal.
-template <int COUT, class Pre>
-__device__ __forceinline__ void norm_relu(Pre pre,
-                                          const float* __restrict__ bias,
-                                          float* o) {
+// (population variance, sums in channel order), ReLU; store(q, v) takes
+// output channels 4q..4q+3.  pre(co) is the pixel's pre-norm conv output
+// of channel co: the thread's registers, or what the block staged (flat
+// fp32 / bf16: a shared-memory row; blocked, ct < C: what the thread wrote
+// to o one channel tile at a time), overwritten in place.  One body for
+// every kernel keeps the flat and the blocked kernels bitwise equal.
+template <int COUT, class Pre, class Store4>
+__device__ __forceinline__ void norm_relu_to(Pre pre,
+                                             const float* __restrict__ bias,
+                                             Store4 store) {
   float sum = 0.f;
 #pragma unroll
   for (int co = 0; co < COUT; ++co)
@@ -371,14 +410,22 @@ __device__ __forceinline__ void norm_relu(Pre pre,
     return fmaxf(__fmul_rn(__fsub_rn(__fadd_rn(pre(co), bias[co]), mu), rs),
                  0.f);
   };
-  float4* o4 = reinterpret_cast<float4*>(o);
 #pragma unroll
   for (int q = 0; q < COUT / 4; ++q)
-    o4[q] = make_float4(out(4 * q), out(4 * q + 1), out(4 * q + 2),
-                        out(4 * q + 3));
+    store(q, make_float4(out(4 * q), out(4 * q + 1), out(4 * q + 2),
+                         out(4 * q + 3)));
 }
 
-// One hidden block: SAME 3x3 conv + bias + channel_norm + ReLU.
+// ... stored as float4 to o (COUT contiguous floats)
+template <int COUT, class Pre>
+__device__ __forceinline__ void norm_relu(Pre pre,
+                                          const float* __restrict__ bias,
+                                          float* o) {
+  float4* o4 = reinterpret_cast<float4*>(o);
+  norm_relu_to<COUT>(pre, bias, [o4](int q, float4 v) { o4[q] = v; });
+}
+
+// One hidden block, int8 flat: SAME 3x3 conv + bias + channel_norm + ReLU.
 template <class R, int COUT>
 __global__ void __launch_bounds__(NPIX)
 conv_norm_relu_kernel(const void* __restrict__ x,
@@ -402,6 +449,78 @@ conv_norm_relu_kernel(const void* __restrict__ x,
   conv_taps<R, COUT>(w, wscale, smem, sm, cin, py, px, acc);
   norm_relu<COUT>([&](int co) { return acc[co]; }, bias,
                   out + ((img * l + y0 + py) * l + x0 + px) * COUT);
+}
+
+// to_bits, int8 flat: conv + bias, reduced over the tile's pixels into a
+// GAP partial;
+// with the correlation bank, also the tile's highpass(tiles) . corr
+// partial.  Partials are (b * tiles, NB), tile-major within an image.
+template <class R, int NB>
+__global__ void __launch_bounds__(NPIX)
+conv_gap_corr_kernel(const void* __restrict__ x, const float* __restrict__ xs,
+                     const typename R::W* __restrict__ w,
+                     const float* __restrict__ wscale,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ tiles_in,
+                     const typename R::H* __restrict__ corr,
+                     float* __restrict__ part_gap,
+                     float* __restrict__ part_corr, int l, int cin,
+                     int has_corr) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const FlatSmem<R> sm(cin, NB);
+  float* s_red = reinterpret_cast<float*>(smem + ((sm.end + 15) & ~15));
+  const int tiles_x = l / TW, tiles = (l / TH) * tiles_x;
+  const long long img = blockIdx.x / tiles;
+  const int t = blockIdx.x % tiles;
+  const int y0 = (t / tiles_x) * TH, x0 = (t % tiles_x) * TW;
+  const int py = threadIdx.x / TW, px = threadIdx.x % TW;
+  load_halo<R, TH, TW>(x, xs, reinterpret_cast<typename R::X*>(smem + sm.in),
+                       reinterpret_cast<float*>(smem + sm.sc), img, y0, x0,
+                       l, cin);
+  float acc[NB];
+  conv_taps<R, NB>(w, wscale, smem, sm, cin, py, px, acc);
+#pragma unroll
+  for (int co = 0; co < NB; ++co)
+    s_red[threadIdx.x * (NB + 1) + co] = __fadd_rn(acc[co], bias[co]);
+  __syncthreads();
+  for (int co = threadIdx.x; co < NB; co += blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < NPIX; ++p) s = __fadd_rn(s, s_red[p * (NB + 1) + co]);
+    part_gap[(long long)blockIdx.x * NB + co] = s;
+  }
+  if (!has_corr) return;
+  // highpass = tiles - box3x3(tiles): the nine zero-padded views folded
+  // left in [ky, kx] order, times float(1/9) (the reference multiplies),
+  // then rounded to the correlation bank's precision
+  float* s_hp = reinterpret_cast<float*>(smem);  // the weights are done
+  __syncthreads();
+  const float* ti = tiles_in + img * l * l * 3;
+  const int gy = y0 + py, gx = x0 + px;
+  for (int c = 0; c < 3; ++c) {
+    float box = 0.f;
+    for (int tap = 0; tap < 9; ++tap) {
+      const int sy = gy + tap / 3 - 1, sx = gx + tap % 3 - 1;
+      float v = 0.f;
+      if (sy >= 0 && sy < l && sx >= 0 && sx < l)
+        v = ti[((long long)sy * l + sx) * 3 + c];
+      box = tap == 0 ? v : __fadd_rn(box, v);
+    }
+    const float center = ti[((long long)gy * l + gx) * 3 + c];
+    s_hp[threadIdx.x * 3 + c] = round_to<typename R::H>(
+        __fsub_rn(center, __fmul_rn(box, 1.0f / 9.0f)));
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < NB; n += blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < NPIX; ++p) {
+      const long long gp = (long long)(y0 + p / TW) * l + x0 + p % TW;
+      const typename R::H* cp = corr + (gp * NB + n) * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s = fmaf(s_hp[p * 3 + c], to_f(cp[c]), s);
+    }
+    part_corr[(long long)blockIdx.x * NB + n] = s;
+  }
 }
 
 // ---- blocked schedule ----------------------------------------------------
@@ -557,74 +676,354 @@ conv_blocked_kernel(const void* __restrict__ x, const float* __restrict__ xs,
   }
 }
 
-// to_bits conv + bias, reduced over the tile's pixels into a GAP partial;
-// with the correlation bank, also the tile's highpass(tiles) . corr
-// partial.  Partials are (b * tiles, NB), tile-major within an image.
-template <class R, int NB>
-__global__ void __launch_bounds__(NPIX)
-conv_gap_corr_kernel(const void* __restrict__ x, const float* __restrict__ xs,
-                     const typename R::W* __restrict__ w,
-                     const float* __restrict__ wscale,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ tiles_in,
-                     const typename R::H* __restrict__ corr,
-                     float* __restrict__ part_gap,
-                     float* __restrict__ part_corr, int l, int cin,
-                     int has_corr) {
+// ---- flat schedule, fp32 and bf16: the register-tiled engine --------------
+// (see the header).  A block's RT x RT pixel tile, its halo (RHW pixels
+// a side, rows RHP pixels apart), a thread's TM pixels x TN columns, and
+// the RSTAGES slots of the weight ring.  A row holds RPG threads' pixel
+// groups; a thread's pixel m is RPG * m columns on from its first.
+constexpr int RT = 16, RHW = RT + 2, RHP = 20;
+constexpr int TM = 8, TN = 8, RSTAGES = 3;
+constexpr int RPG = RT / TM;
+
+// floats per halo pixel: cin + 4 (layer 0: 4), so a pixel's channels are
+// float4-aligned and neighbouring pixels an odd number of bank quads apart
+__host__ __device__ constexpr int rt_pitch(int cin) {
+  return cin % 4 ? (cin + 3) / 4 * 4 : cin + 4;
+}
+
+// Launch shape and shared memory of the engine at NP output columns
+// (padded to a multiple of TN) and CIN input channels: the halo, which the
+// epilogue reuses, then the weight ring.  Offsets in bytes, 16-byte
+// aligned.
+template <class R, int NP, int CIN>
+struct Rt {
+  static_assert(NP % TN == 0, "columns come in groups of TN");
+  static constexpr int NCG = NP / TN;  // column groups
+  static constexpr int THREADS = RT * RT / TM * NCG;
+  static constexpr int SIN = rt_pitch(CIN);
+  static constexpr int HALO = RHW * RHP * SIN * 4;
+  // the staged (RT^2, NP + 1) rows and the to_bits highpass (RT^2, 3)
+  static constexpr int STAGE = RT * RT * (NP + 4) * 4;
+  static constexpr int W = ((HALO > STAGE ? HALO : STAGE) + 15) & ~15;
+  static constexpr int WTAP = CIN * NP;  // weights in one slot
+  static constexpr int END = W + RSTAGES * WTAP * (int)sizeof(typename R::SW);
+};
+
+// 16 bytes, or 16 zero bytes when !valid (the SAME padding)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// The (RHW x RHW) halo of the pixel tile at (y0, x0) of image img, zero
+// outside the image: s_in[(hy * RHP + hx) * SIN + ci].  cin % 4 == 0 with
+// cp.async (bf16 rounds it once it has landed, rt_round_halo); layer 0's
+// 12-byte pixels synchronously, rounded for bf16.
+template <class R, int CIN>
+__device__ __forceinline__ void rt_load_halo(const float* __restrict__ x,
+                                             float* s_in, long long img,
+                                             int y0, int x0, int l) {
+  constexpr int SIN = rt_pitch(CIN);
+  const float* xi = x + img * l * l * CIN;
+  if constexpr (CIN % 4 == 0) {
+    constexpr int Q = CIN / 4;
+    for (int e = threadIdx.x; e < RHW * RHW * Q; e += blockDim.x) {
+      const int q = e % Q, p = e / Q;
+      const int hy = p / RHW, hx = p % RHW;
+      const int gy = y0 + hy - 1, gx = x0 + hx - 1;
+      const bool in = gy >= 0 && gy < l && gx >= 0 && gx < l;
+      cp_async16_zfill(s_in + (hy * RHP + hx) * SIN + 4 * q,
+                       in ? xi + ((long long)gy * l + gx) * CIN + 4 * q : xi,
+                       in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < RHW * RHW * CIN; e += blockDim.x) {
+      const int c = e % CIN, p = e / CIN;
+      const int hy = p / RHW, hx = p % RHW;
+      const int gy = y0 + hy - 1, gx = x0 + hx - 1;
+      float v = 0.f;
+      if (gy >= 0 && gy < l && gx >= 0 && gx < l)
+        v = xi[((long long)gy * l + gx) * CIN + c];
+      if constexpr (std::is_same<R, RBF16>::value)
+        v = round_to<__nv_bfloat16>(v);
+      s_in[(hy * RHP + hx) * SIN + c] = v;
+    }
+  }
+}
+
+template <int CIN>
+__device__ __forceinline__ void rt_round_halo(float* s_in) {
+  constexpr int SIN = rt_pitch(CIN);
+  for (int e = threadIdx.x; e < RHW * RHW * CIN; e += blockDim.x) {
+    const int c = e % CIN, p = e / CIN;
+    float* v = s_in + ((p / RHW) * RHP + p % RHW) * SIN + c;
+    *v = round_to<__nv_bfloat16>(*v);
+  }
+}
+
+// Tap `tap`'s weights, the CIN rows of the NC columns of the packed
+// (9 * CIN, NC) weight, into a ring slot of row pitch NP, with cp.async.
+template <class R, int NP, int NC, int CIN>
+__device__ __forceinline__ void rt_stage_tap(
+    const typename R::W* __restrict__ w, typename R::SW* slot, int tap) {
+  using W = typename R::W;
+  static_assert(std::is_same<W, typename R::SW>::value, "staged as stored");
+  constexpr int ROW = NC * (int)sizeof(W);
+  constexpr int CH = ROW % 16 == 0 ? 16 : 8;
+  static_assert(ROW % 8 == 0, "weight rows of 8n bytes");
+  constexpr int RC = ROW / CH;  // chunks per row
+  const char* src =
+      reinterpret_cast<const char*>(w + (long long)tap * CIN * NC);
+  char* dst = reinterpret_cast<char*>(slot);
+  for (int e = threadIdx.x; e < CIN * RC; e += blockDim.x) {
+    const int r = e / RC, q = e % RC;
+    char* d = dst + r * NP * (int)sizeof(W) + q * CH;
+    const char* s = src + r * ROW + q * CH;
+    if constexpr (CH == 16)
+      cp_async16(d, s);
+    else
+      cp_async8(d, s);
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// One tap of a thread's TM x TN register tile, `tap_fold`'s chain: for
+// each output a fresh partial over the input channels in order, folded
+// left into acc (tap 0 starts the sum).  a0: the thread's first pixel in
+// the halo at this tap's offset (pixel m is RPG * m pixels on); wt: the tap's
+// slot at the thread's first column (column group q is 4 * NCG columns on).
+template <class R, int NP, int CIN>
+__device__ __forceinline__ void rt_tap(const float* a0,
+                                       const typename R::SW* wt, int tap,
+                                       float (&acc)[TM][TN]) {
+  constexpr int SIN = rt_pitch(CIN), NCG = NP / TN;
+  float part[TM][TN];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int n = 0; n < TN; ++n) part[m][n] = 0.f;
+#pragma unroll 4
+  for (int c4 = 0; c4 < CIN; c4 += 4) {
+    float4 a[TM];
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+      a[m] = *reinterpret_cast<const float4*>(a0 + RPG * m * SIN + c4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (CIN % 4 == 0 || c4 + j < CIN) {
+        float4 wv[TN / 4];
+#pragma unroll
+        for (int q = 0; q < TN / 4; ++q)
+          wv[q] = load_w4(wt + (c4 + j) * NP + 4 * NCG * q);
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+          const float xv = lane_of(a[m], j);
+#pragma unroll
+          for (int q = 0; q < TN / 4; ++q) {
+            part[m][4 * q + 0] = fmaf(xv, wv[q].x, part[m][4 * q + 0]);
+            part[m][4 * q + 1] = fmaf(xv, wv[q].y, part[m][4 * q + 1]);
+            part[m][4 * q + 2] = fmaf(xv, wv[q].z, part[m][4 * q + 2]);
+            part[m][4 * q + 3] = fmaf(xv, wv[q].w, part[m][4 * q + 3]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int n = 0; n < TN; ++n)
+      acc[m][n] = tap == 0 ? part[m][n] : __fadd_rn(acc[m][n], part[m][n]);
+}
+
+// A thread's pixel m in the block's tile (row-major) and its register
+// column n among the NP columns.
+template <int NCG>
+__device__ __forceinline__ int rt_pixel(int m) {
+  const int pg = threadIdx.x / NCG;
+  return (pg / RPG) * RT + pg % RPG + RPG * m;
+}
+template <int NCG>
+__device__ __forceinline__ int rt_column(int n) {
+  return 4 * NCG * (n / 4) + 4 * (threadIdx.x % NCG) + n % 4;
+}
+
+// The nine taps of the block's tile into acc: the halo and the first two
+// taps' weights in flight, then per tap one barrier, the copy of the tap
+// two ahead (into the slot of the tap before), and the tap's FFMA.  Ends
+// with a barrier, after which the halo and the ring are free.
+template <class R, int NP, int NC, int CIN>
+__device__ __forceinline__ void rt_conv(const float* __restrict__ x,
+                                        const typename R::W* __restrict__ w,
+                                        char* smem, long long img, int y0,
+                                        int x0, int l, float (&acc)[TM][TN]) {
+  using K = Rt<R, NP, CIN>;
+  using SW = typename R::SW;
+  float* s_in = reinterpret_cast<float*>(smem);
+  SW* s_w = reinterpret_cast<SW*>(smem + K::W);
+  if constexpr (NC < NP) {  // padding columns: zero, never copied over
+    for (int e = threadIdx.x; e < RSTAGES * CIN * (NP - NC); e += blockDim.x)
+      s_w[(e / (NP - NC)) * NP + NC + e % (NP - NC)] = SW(0.f);
+  }
+  rt_load_halo<R, CIN>(x, s_in, img, y0, x0, l);
+  rt_stage_tap<R, NP, NC, CIN>(w, s_w, 0);
+  cp_async_commit();
+  rt_stage_tap<R, NP, NC, CIN>(w, s_w + K::WTAP, 1);
+  cp_async_commit();
+  const int pg = threadIdx.x / K::NCG;
+  const int first = (pg / RPG) * RHP + pg % RPG;  // pixel 0 at tap 0
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    cp_async_wait<1>();  // this thread's copies of the tap (and halo) landed
+    __syncthreads();     // everyone's have; everyone is done with tap - 1
+    if constexpr (std::is_same<R, RBF16>::value && CIN % 4 == 0) {
+      if (tap == 0) {
+        rt_round_halo<CIN>(s_in);
+        __syncthreads();
+      }
+    }
+    if (tap + 2 < 9)
+      rt_stage_tap<R, NP, NC, CIN>(
+          w, s_w + ((tap + 2) % RSTAGES) * K::WTAP, tap + 2);
+    cp_async_commit();  // empty at the last two taps: keeps wait<1> exact
+    rt_tap<R, NP, CIN>(s_in + (first + (tap / 3) * RHP + tap % 3) * K::SIN,
+                       s_w + (tap % RSTAGES) * K::WTAP +
+                           4 * (threadIdx.x % K::NCG),
+                       tap, acc);
+  }
+  __syncthreads();
+}
+
+// One hidden block, flat schedule, fp32 / bf16: grid b * (l / RT)^2.
+template <class R, int COUT, int CIN>
+__global__ void __launch_bounds__(Rt<R, COUT, CIN>::THREADS, 1)
+conv_regtile_kernel(const float* __restrict__ x,
+                    const typename R::W* __restrict__ w,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int l) {
+  using K = Rt<R, COUT, CIN>;
+  constexpr int SP = COUT + 1;  // odd: a thread per pixel reads conflict-free
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const FlatSmem<R> sm(cin, NB);
-  float* s_red = reinterpret_cast<float*>(smem + ((sm.end + 15) & ~15));
-  const int tiles_x = l / TW, tiles = (l / TH) * tiles_x;
-  const long long img = blockIdx.x / tiles;
-  const int t = blockIdx.x % tiles;
-  const int y0 = (t / tiles_x) * TH, x0 = (t % tiles_x) * TW;
-  const int py = threadIdx.x / TW, px = threadIdx.x % TW;
-  load_halo<R, TH, TW>(x, xs, reinterpret_cast<typename R::X*>(smem + sm.in),
-                       reinterpret_cast<float*>(smem + sm.sc), img, y0, x0,
-                       l, cin);
-  float acc[NB];
-  conv_taps<R, NB>(w, wscale, smem, sm, cin, py, px, acc);
+  const int tiles_x = l / RT;
+  const long long img = blockIdx.x / (tiles_x * tiles_x);
+  const int t = blockIdx.x % (tiles_x * tiles_x);
+  const int y0 = (t / tiles_x) * RT, x0 = (t % tiles_x) * RT;
+  float acc[TM][TN];
+  rt_conv<R, COUT, COUT, CIN>(x, w, smem, img, y0, x0, l, acc);
+  float* s_pre = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int co = 0; co < NB; ++co)
-    s_red[threadIdx.x * (NB + 1) + co] = __fadd_rn(acc[co], bias[co]);
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int n = 0; n < TN; ++n)
+      s_pre[rt_pixel<K::NCG>(m) * SP + rt_column<K::NCG>(n)] = acc[m][n];
   __syncthreads();
-  for (int co = threadIdx.x; co < NB; co += blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < NPIX; ++p) s = __fadd_rn(s, s_red[p * (NB + 1) + co]);
-    part_gap[(long long)blockIdx.x * NB + co] = s;
-  }
-  if (!has_corr) return;
-  // highpass = tiles - box3x3(tiles): the nine zero-padded views folded
-  // left in [ky, kx] order, times float(1/9) (the reference multiplies),
-  // then rounded to the correlation bank's precision
-  float* s_hp = reinterpret_cast<float*>(smem);  // the weights are done
-  __syncthreads();
-  const float* ti = tiles_in + img * l * l * 3;
-  const int gy = y0 + py, gx = x0 + px;
-  for (int c = 0; c < 3; ++c) {
-    float box = 0.f;
-    for (int tap = 0; tap < 9; ++tap) {
-      const int sy = gy + tap / 3 - 1, sx = gx + tap % 3 - 1;
-      float v = 0.f;
-      if (sy >= 0 && sy < l && sx >= 0 && sx < l)
-        v = ti[((long long)sy * l + sx) * 3 + c];
-      box = tap == 0 ? v : __fadd_rn(box, v);
-    }
-    const float center = ti[((long long)gy * l + gx) * 3 + c];
-    s_hp[threadIdx.x * 3 + c] = round_to<typename R::H>(
-        __fsub_rn(center, __fmul_rn(box, 1.0f / 9.0f)));
+  for (int p = threadIdx.x; p < RT * RT; p += blockDim.x) {
+    float* row = s_pre + p * SP;
+    norm_relu_to<COUT>([row](int co) { return row[co]; }, bias,
+                       [row](int q, float4 v) {
+                         row[4 * q] = v.x;
+                         row[4 * q + 1] = v.y;
+                         row[4 * q + 2] = v.z;
+                         row[4 * q + 3] = v.w;
+                       });
   }
   __syncthreads();
-  for (int n = threadIdx.x; n < NB; n += blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < NPIX; ++p) {
-      const long long gp = (long long)(y0 + p / TW) * l + x0 + p % TW;
-      const typename R::H* cp = corr + (gp * NB + n) * 3;
+  float* o = out + ((img * l + y0) * l + x0) * COUT;
+  for (int e = threadIdx.x; e < RT * RT * COUT; e += blockDim.x) {
+    const int p = e / COUT, co = e % COUT;
+    o[((long long)(p / RT) * l + p % RT) * COUT + co] = s_pre[p * SP + co];
+  }
+}
+
+// to_bits, flat schedule, fp32 / bf16: the conv + bias at NB = 60 columns
+// (64 in the engine), reduced into the GAP partials, and with the
+// correlation bank the highpass(tiles) . corr partials, of the two TH x TW
+// tiles the block covers, each over its pixels in row-major order.
+// Partials are (b * (l / TH) * (l / TW), NB), tile-major within an image,
+// as conv_gap_corr_kernel writes them.
+template <class R, int CIN>
+__global__ void __launch_bounds__(Rt<R, 64, CIN>::THREADS, 1)
+gap_corr_regtile_kernel(const float* __restrict__ x,
+                        const typename R::W* __restrict__ w,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ tiles_in,
+                        const typename R::H* __restrict__ corr,
+                        float* __restrict__ part_gap,
+                        float* __restrict__ part_corr, int l, int has_corr) {
+  constexpr int NB = 60, NP = 64, SR = NB + 1;
+  using K = Rt<R, NP, CIN>;
+  static_assert(RT == TW && RT == 2 * TH, "a block covers two GAP tiles");
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const int tiles_x = l / RT;
+  const long long img = blockIdx.x / (tiles_x * tiles_x);
+  const int t = blockIdx.x % (tiles_x * tiles_x);
+  const int by = t / tiles_x, bx = t % tiles_x;
+  const int y0 = by * RT, x0 = bx * RT;
+  float acc[TM][TN];
+  rt_conv<R, NP, NB, CIN>(x, w, smem, img, y0, x0, l, acc);
+  float* s_red = reinterpret_cast<float*>(smem);
+  float* s_hp = s_red + RT * RT * SR;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) s = fmaf(s_hp[p * 3 + c], to_f(cp[c]), s);
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int n = 0; n < TN; ++n) {
+      const int col = rt_column<K::NCG>(n);
+      if (col < NB)
+        s_red[rt_pixel<K::NCG>(m) * SR + col] =
+            __fadd_rn(acc[m][n], bias[col]);
     }
-    part_corr[(long long)blockIdx.x * NB + n] = s;
+  if (has_corr) {
+    // highpass = tiles - box3x3(tiles): the nine zero-padded views folded
+    // left in [ky, kx] order, times float(1/9) (the reference multiplies),
+    // then rounded to the correlation bank's precision
+    const float* ti = tiles_in + img * l * l * 3;
+    for (int p = threadIdx.x; p < RT * RT; p += blockDim.x) {
+      const int gy = y0 + p / RT, gx = x0 + p % RT;
+      for (int c = 0; c < 3; ++c) {
+        float box = 0.f;
+        for (int tap = 0; tap < 9; ++tap) {
+          const int sy = gy + tap / 3 - 1, sx = gx + tap % 3 - 1;
+          float v = 0.f;
+          if (sy >= 0 && sy < l && sx >= 0 && sx < l)
+            v = ti[((long long)sy * l + sx) * 3 + c];
+          box = tap == 0 ? v : __fadd_rn(box, v);
+        }
+        const float center = ti[((long long)gy * l + gx) * 3 + c];
+        s_hp[p * 3 + c] = round_to<typename R::H>(
+            __fsub_rn(center, __fmul_rn(box, 1.0f / 9.0f)));
+      }
+    }
+  }
+  __syncthreads();
+  // GAP tile s (0: rows y0..y0+7, 1: the next 8) is pixels
+  // [s * TH * TW, (s + 1) * TH * TW) of the block's tile, row-major
+  const long long parts_x = l / TW, first = img * (l / TH) * parts_x;
+  for (int i = threadIdx.x; i < 4 * NB; i += blockDim.x) {
+    const int s = (i / NB) % 2, n = i % NB;
+    const long long part = first + (2 * by + s) * parts_x + bx;
+    float sum = 0.f;
+    if (i < 2 * NB) {
+      for (int p = 0; p < TH * TW; ++p)
+        sum = __fadd_rn(sum, s_red[(s * TH * TW + p) * SR + n]);
+      part_gap[part * NB + n] = sum;
+    } else if (has_corr) {
+      for (int p = 0; p < TH * TW; ++p) {
+        const long long gp =
+            (long long)(y0 + s * TH + p / TW) * l + x0 + p % TW;
+        const typename R::H* cp = corr + (gp * NB + n) * 3;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          sum = fmaf(s_hp[(s * TH * TW + p) * 3 + c], to_f(cp[c]), sum);
+      }
+      part_corr[part * NB + n] = sum;
+    }
   }
 }
 
@@ -675,9 +1074,10 @@ inline cudaError_t set_smem(K kernel, size_t bytes) {
 
 // The host side of one rung: every launcher takes the rung's pointers as
 // void* (x: fp32 activations, or int8 words with their scales xs) and
-// returns cudaGetLastError() of its launch.  Members are defined out of
-// the class, so they are not inline and `extern template` keeps a rung's
-// kernels in its own source.
+// returns cudaGetLastError() of its launch, or cudaErrorInvalidValue for a
+// shape it is not built for (fp32 / bf16 flat: cin in {3, 16, 32, 64}).
+// Members are defined out of the class, so they are not inline and
+// `extern template` keeps a rung's kernels in its own source.
 template <class R>
 struct Extractor {
   using W = typename R::W;
@@ -688,6 +1088,9 @@ struct Extractor {
   static int conv_any(const void* x, const float* xs, const void* w,
                       const float* wscale, const float* bias, float* out,
                       int b, int l, int cin, int cout, cudaStream_t stream);
+  template <int COUT, int CIN>
+  static int conv_rt(const float* x, const void* w, const float* bias,
+                     float* out, int b, int l, cudaStream_t stream);
   template <int COUT, int CT>
   static int blocked(const void* x, const float* xs, const void* w,
                      const float* wscale, const float* bias, float* out,
@@ -702,6 +1105,11 @@ struct Extractor {
                       const float* tiles, const void* corr, float* part_gap,
                       float* part_corr, int b, int l, int cin, int n_bits,
                       int has_corr, cudaStream_t stream);
+  template <int CIN>
+  static int gap_corr_rt(const float* x, const void* w, const float* bias,
+                         const float* tiles, const void* corr,
+                         float* part_gap, float* part_corr, int b, int l,
+                         int has_corr, cudaStream_t stream);
   static int head(const float* part_gap, const float* part_corr,
                   const void* head_w, const float* head_b,
                   const float* corr_scale, float* logits, float* embed, int b,
@@ -713,12 +1121,37 @@ template <int COUT>
 int Extractor<R>::conv(const void* x, const float* xs, const void* w,
                        const float* wscale, const float* bias, float* out,
                        int b, int l, int cin, cudaStream_t stream) {
-  const int blocks = b * (l / TH) * (l / TW);
-  const size_t smem = FlatSmem<R>(cin, COUT).end;
-  cudaError_t err = set_smem(conv_norm_relu_kernel<R, COUT>, smem);
+  if constexpr (std::is_same<R, RI8>::value) {
+    const int blocks = b * (l / TH) * (l / TW);
+    const size_t smem = FlatSmem<R>(cin, COUT).end;
+    cudaError_t err = set_smem(conv_norm_relu_kernel<R, COUT>, smem);
+    if (err != cudaSuccess) return (int)err;
+    conv_norm_relu_kernel<R, COUT><<<blocks, NPIX, smem, stream>>>(
+        x, xs, static_cast<const W*>(w), wscale, bias, out, l, cin);
+    return (int)cudaGetLastError();
+  } else {
+    const float* xf = static_cast<const float*>(x);
+    switch (cin) {
+      case 3: return conv_rt<COUT, 3>(xf, w, bias, out, b, l, stream);
+      case 16: return conv_rt<COUT, 16>(xf, w, bias, out, b, l, stream);
+      case 32: return conv_rt<COUT, 32>(xf, w, bias, out, b, l, stream);
+      case 64: return conv_rt<COUT, 64>(xf, w, bias, out, b, l, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+}
+
+template <class R>
+template <int COUT, int CIN>
+int Extractor<R>::conv_rt(const float* x, const void* w, const float* bias,
+                          float* out, int b, int l, cudaStream_t stream) {
+  using K = Rt<R, COUT, CIN>;
+  if (l % RT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(conv_regtile_kernel<R, COUT, CIN>, K::END);
   if (err != cudaSuccess) return (int)err;
-  conv_norm_relu_kernel<R, COUT><<<blocks, NPIX, smem, stream>>>(
-      x, xs, static_cast<const W*>(w), wscale, bias, out, l, cin);
+  conv_regtile_kernel<R, COUT, CIN>
+      <<<b * (l / RT) * (l / RT), K::THREADS, K::END, stream>>>(
+          x, static_cast<const W*>(w), bias, out, l);
   return (int)cudaGetLastError();
 }
 
@@ -779,15 +1212,49 @@ int Extractor<R>::gap_corr(const void* x, const float* xs, const void* w,
                            cudaStream_t stream) {
   constexpr int NB = 60;
   if (n_bits != NB) return (int)cudaErrorInvalidValue;
-  const int blocks = b * (l / TH) * (l / TW);
-  const size_t smem = ((FlatSmem<R>(cin, NB).end + 15) & ~15) +
-                      sizeof(float) * NPIX * (NB + 1);
-  cudaError_t err = set_smem(conv_gap_corr_kernel<R, NB>, smem);
+  if constexpr (std::is_same<R, RI8>::value) {
+    const int blocks = b * (l / TH) * (l / TW);
+    const size_t smem = ((FlatSmem<R>(cin, NB).end + 15) & ~15) +
+                        sizeof(float) * NPIX * (NB + 1);
+    cudaError_t err = set_smem(conv_gap_corr_kernel<R, NB>, smem);
+    if (err != cudaSuccess) return (int)err;
+    conv_gap_corr_kernel<R, NB><<<blocks, NPIX, smem, stream>>>(
+        x, xs, static_cast<const W*>(w), wscale, bias, tiles,
+        static_cast<const typename R::H*>(corr), part_gap, part_corr, l, cin,
+        has_corr);
+    return (int)cudaGetLastError();
+  } else {
+    const float* xf = static_cast<const float*>(x);
+    switch (cin) {
+      case 3: return gap_corr_rt<3>(xf, w, bias, tiles, corr, part_gap,
+                                    part_corr, b, l, has_corr, stream);
+      case 16: return gap_corr_rt<16>(xf, w, bias, tiles, corr, part_gap,
+                                      part_corr, b, l, has_corr, stream);
+      case 32: return gap_corr_rt<32>(xf, w, bias, tiles, corr, part_gap,
+                                      part_corr, b, l, has_corr, stream);
+      case 64: return gap_corr_rt<64>(xf, w, bias, tiles, corr, part_gap,
+                                      part_corr, b, l, has_corr, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+}
+
+template <class R>
+template <int CIN>
+int Extractor<R>::gap_corr_rt(const float* x, const void* w,
+                              const float* bias, const float* tiles,
+                              const void* corr, float* part_gap,
+                              float* part_corr, int b, int l, int has_corr,
+                              cudaStream_t stream) {
+  using K = Rt<R, 64, CIN>;
+  if (l % RT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(gap_corr_regtile_kernel<R, CIN>, K::END);
   if (err != cudaSuccess) return (int)err;
-  conv_gap_corr_kernel<R, NB><<<blocks, NPIX, smem, stream>>>(
-      x, xs, static_cast<const W*>(w), wscale, bias, tiles,
-      static_cast<const typename R::H*>(corr), part_gap, part_corr, l, cin,
-      has_corr);
+  gap_corr_regtile_kernel<R, CIN>
+      <<<b * (l / RT) * (l / RT), K::THREADS, K::END, stream>>>(
+          x, static_cast<const W*>(w), bias, tiles,
+          static_cast<const typename R::H*>(corr), part_gap, part_corr, l,
+          has_corr);
   return (int)cudaGetLastError();
 }
 

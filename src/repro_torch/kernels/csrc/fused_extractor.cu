@@ -14,7 +14,9 @@
 
 using namespace qr;
 
-// cout in {16, 32, 64}; l a multiple of 16.
+// cout in {16, 32, 64}; l a multiple of 16.  fp32 / bf16 (the
+// register-tiled kernel): cin in {3, 16, 32, 64}; with cin > 3, x and w
+// 16-byte aligned.
 extern "C" int qr_conv3x3_norm_relu(const void* x, const void* xs,
                                     const void* w, const void* wscale,
                                     const void* bias, void* out, int b, int l,
@@ -58,7 +60,9 @@ extern "C" int qr_conv3x3_norm_relu_blocked(const void* x, const void* xs,
   }
 }
 
-// n_bits == 60 (the RS(15,12) GF(16) codeword).
+// n_bits == 60 (the RS(15,12) GF(16) codeword).  fp32 / bf16: cin in
+// {3, 16, 32, 64}, x and w 16-byte aligned.  corr and part_corr may be
+// null when has_corr is 0.
 extern "C" int qr_conv3x3_gap_corr(const void* x, const void* xs,
                                    const void* w, const void* wscale,
                                    const void* bias, const void* tiles,

@@ -10,12 +10,17 @@ schedule (``fused_extractor_blocked``).  The pack's dtype picks the rung
 * :func:`fused_extractor_cuda` — the hand-written CUDA kernels
   (``csrc/extractor.cuh``, instantiated per rung in
   ``csrc/fused_extractor*.cu``): one direct-conv kernel per hidden
-  block with a fused bias + channel_norm + ReLU epilogue, a to_bits
-  kernel that also reduces the GAP and correlation partials per pixel
-  tile, and a head kernel; the int8 rung adds a pass before each conv
-  that quantizes its input once per pixel.  Activations go through
-  global memory between layers, in fp32 (one image's activation is
-  1 MiB at l=64, C=64, more than an SM's shared memory).
+  block with a fused bias + channel_norm + ReLU epilogue
+  (:func:`conv_block`), a to_bits kernel that also reduces the GAP and
+  correlation partials per 8x16 pixel tile (:func:`to_bits_partials`),
+  and a head kernel (:func:`head_logits`).  At fp32 and bf16 the conv
+  and to_bits kernels are register-tiled (a block owns a 16x16 pixel
+  tile and every output column, a thread 8 pixels x 8 columns); the
+  int8 rung keeps one thread per pixel of an 8x16 tile and adds a pass
+  before each conv that quantizes its input once per pixel.
+  Activations go through global memory between layers, in fp32 (one
+  image's activation is 1 MiB at l=64, C=64, more than an SM's shared
+  memory).
 
 The blocked schedule (batch block ``bb``, output-channel tile ``ct``,
 ``double_buffer``; see ``kernels/autotune.Schedule``):
@@ -43,7 +48,10 @@ from repro_torch.kernels import _build
 # instantiations of the CUDA kernels (csrc/extractor.cuh)
 HIDDEN_CHANNELS = (16, 32, 64)
 N_BITS = (60,)
-PIXEL_TILE = (8, 16)  # (rows, cols) of the pixel tile a block owns
+# the flat kernels' pixel tiles are 16x16 (fp32, bf16) and 8x16 (int8);
+# each GAP / correlation partial covers an 8x16 (rows, cols) tile
+PIXEL_TILE = 16
+PARTIAL_TILE = (8, 16)
 # blocked conv kernel: 16x16 pixel tiles, channel tiles that are
 # multiples of 4 dividing the hidden width (see blocked_channel_tiles)
 BLOCKED_PIXEL_TILE = 16
@@ -65,9 +73,9 @@ def _check_pack(tiles: torch.Tensor, packed: dict) -> int:
         raise ValueError(f"tiles must be (b, l, l, 3), got "
                          f"{tuple(tiles.shape)}")
     l = tiles.shape[1]
-    if l % PIXEL_TILE[0] or l % PIXEL_TILE[1]:
+    if l % PIXEL_TILE:
         raise ValueError(f"tile size {l} must be a multiple of "
-                         f"{PIXEL_TILE[1]} for the CUDA decode kernel")
+                         f"{PIXEL_TILE} for the CUDA decode kernel")
     dtype = packed_dtype(packed)
     f32 = torch.float32
     cdt = packed["blocks"][0]["w"].dtype
@@ -95,6 +103,10 @@ def _check_pack(tiles: torch.Tensor, packed: dict) -> int:
                 f"a {dtype} pack (conv weights {cdt}, head and correlation "
                 f"{hdt}, biases and scales float32) on the tiles' CUDA "
                 f"device")
+    if any(blk["w"].data_ptr() % 16
+           for blk in packed["blocks"] + [packed["to_bits"]]):
+        raise ValueError("the CUDA decode kernels take 16-byte aligned "
+                         "packed conv weights")
     n_bits = packed["head"]["b"].shape[0]
     if n_bits not in N_BITS or packed["to_bits"]["w"].shape[-1] != n_bits:
         raise ValueError(f"n_bits {n_bits} not in {N_BITS}")
@@ -119,22 +131,39 @@ def _layer_input(lib, x, cin, rung, stream):
     return q, s
 
 
+def conv_block(lib, x, blk, rung, stream, blocked=None):
+    """One hidden block (SAME 3x3 conv + bias + channel_norm + ReLU) of
+    the pack entry ``blk`` on the contiguous fp32 activation ``x``
+    (b, l, l, cin), cin 3 or a hidden width: the flat kernel
+    (``qr_conv3x3_norm_relu``), or with ``blocked = (bb, ct,
+    double_buffer)`` the blocked one; at int8 after the quantize pass.
+    Returns the (b, l, l, cout) activation.  A kernel launch of the op,
+    not the op: it counts nothing."""
+    b, l, cin = x.shape[0], x.shape[1], x.shape[3]
+    cout = blk["w"].shape[-1]
+    y = torch.empty((b, l, l, cout), dtype=torch.float32, device=x.device)
+    xq, xs = _layer_input(lib, x, cin, rung, stream)
+    args = (xq.data_ptr(), _ptr(xs), blk["w"].data_ptr(),
+            _ptr(blk.get("scale")), blk["b"].data_ptr(), y.data_ptr(), b, l,
+            cin, cout)
+    if blocked is None:
+        _build.check("qr_conv3x3_norm_relu", lib.qr_conv3x3_norm_relu(
+            *args, rung, stream))
+    else:
+        bb, ct, db = blocked
+        _build.check("qr_conv3x3_norm_relu_blocked",
+                     lib.qr_conv3x3_norm_relu_blocked(
+                         *args, bb, ct, int(db), rung, stream))
+    return y
+
+
 def _launch_flat(lib, tiles, packed, rung, with_embed, stream):
     """The flat schedule's launches on one stream (D + 2 kernels, plus a
     quantize pass per conv at int8)."""
-    b, l = tiles.shape[0], tiles.shape[1]
-    x, cin = tiles, 3
+    x = tiles
     for blk in packed["blocks"]:
-        cout = blk["w"].shape[-1]
-        y = torch.empty((b, l, l, cout), dtype=torch.float32,
-                        device=tiles.device)
-        xq, xs = _layer_input(lib, x, cin, rung, stream)
-        _build.check("qr_conv3x3_norm_relu", lib.qr_conv3x3_norm_relu(
-            xq.data_ptr(), _ptr(xs), blk["w"].data_ptr(),
-            _ptr(blk.get("scale")), blk["b"].data_ptr(), y.data_ptr(), b, l,
-            cin, cout, rung, stream))
-        x, cin = y, cout
-    return _head(lib, tiles, x, cin, packed, rung, with_embed, stream)
+        x = conv_block(lib, x, blk, rung, stream)
+    return _head(lib, tiles, x, packed, rung, with_embed, stream)
 
 
 def fused_extractor_cuda(tiles: torch.Tensor, packed: dict, *,
@@ -159,34 +188,53 @@ def _empty(tiles, packed, with_embed):
     return (empty, empty.clone()) if with_embed else empty
 
 
-def _head(lib, tiles, x, cin, packed, rung, with_embed, stream):
-    """The to_bits + GAP + correlation kernel and the head kernel on the
-    last hidden activation ``x``."""
-    b, l = tiles.shape[0], tiles.shape[1]
+def to_bits_partials(lib, tiles, x, packed, rung, stream):
+    """The to_bits + GAP + correlation kernel on the last hidden
+    activation ``x`` (at int8 after the quantize pass): the
+    (b * (l / 8) * (l / 16), n_bits) GAP partials and, when the
+    correlation bank applies at this tile size, the correlation
+    partials (else None), one row per 8x16 pixel tile, tile-major
+    within an image."""
+    b, l, cin = x.shape[0], x.shape[1], x.shape[3]
     n_bits = packed["head"]["b"].shape[0]
-    dev = tiles.device
-    n_tiles = (l // PIXEL_TILE[0]) * (l // PIXEL_TILE[1])
+    n_tiles = (l // PARTIAL_TILE[0]) * (l // PARTIAL_TILE[1])
     has_corr = "corr" in packed and packed["corr"].shape[0] == l * l
     part_gap = torch.empty((b * n_tiles, n_bits), dtype=torch.float32,
-                           device=dev)
-    part_corr = torch.empty_like(part_gap) if has_corr else part_gap
-    corr = packed["corr"] if has_corr else part_gap
-    corr_scale = packed["corr_scale"] if has_corr else part_gap
+                           device=x.device)
+    part_corr = torch.empty_like(part_gap) if has_corr else None
     tb = packed["to_bits"]
     xq, xs = _layer_input(lib, x, cin, rung, stream)
     _build.check("qr_conv3x3_gap_corr", lib.qr_conv3x3_gap_corr(
         xq.data_ptr(), _ptr(xs), tb["w"].data_ptr(), _ptr(tb.get("scale")),
-        tb["b"].data_ptr(), tiles.data_ptr(), corr.data_ptr(),
-        part_gap.data_ptr(), part_corr.data_ptr(), b, l, cin, n_bits,
-        int(has_corr), rung, stream))
-    logits = torch.empty((b, n_bits), dtype=torch.float32, device=dev)
+        tb["b"].data_ptr(), tiles.data_ptr(),
+        _ptr(packed["corr"] if has_corr else None), part_gap.data_ptr(),
+        _ptr(part_corr), b, l, cin, n_bits, int(has_corr), rung, stream))
+    return part_gap, part_corr
+
+
+def head_logits(lib, part_gap, part_corr, packed, rung, l, with_embed,
+                stream):
+    """The head kernel on :func:`to_bits_partials`' partials: (b,
+    n_bits) logits, and the GAP embedding when ``with_embed``."""
+    n_bits = packed["head"]["b"].shape[0]
+    b = part_gap.shape[0] // ((l // PARTIAL_TILE[0]) *
+                              (l // PARTIAL_TILE[1]))
+    has_corr = part_corr is not None
+    logits = torch.empty((b, n_bits), dtype=torch.float32,
+                         device=part_gap.device)
     embed = torch.empty_like(logits) if with_embed else None
     _build.check("qr_extractor_head", lib.qr_extractor_head(
-        part_gap.data_ptr(), part_corr.data_ptr(),
+        part_gap.data_ptr(), _ptr(part_corr),
         packed["head"]["w"].data_ptr(), packed["head"]["b"].data_ptr(),
-        corr_scale.data_ptr(), logits.data_ptr(), _ptr(embed), b, l,
-        n_bits, int(has_corr), rung, stream))
+        _ptr(packed["corr_scale"] if has_corr else None), logits.data_ptr(),
+        _ptr(embed), b, l, n_bits, int(has_corr), rung, stream))
     return (logits, embed) if with_embed else logits
+
+
+def _head(lib, tiles, x, packed, rung, with_embed, stream):
+    parts = to_bits_partials(lib, tiles, x, packed, rung, stream)
+    return head_logits(lib, *parts, packed, rung, tiles.shape[1],
+                       with_embed, stream)
 
 
 def block_sizes(b: int, channels: int, batch_block: int,
@@ -252,21 +300,11 @@ def _launch_blocked(lib, tiles, packed, rung, bb, ct, double_buffer,
     """The blocked schedule's launches: the blocked conv per hidden
     block (plus the quantize pass at int8), then the flat to_bits and
     head kernels."""
-    b, l = tiles.shape[0], tiles.shape[1]
-    C = packed["blocks"][0]["w"].shape[-1]
-    x, cin = tiles, 3
+    x = tiles
     for blk in packed["blocks"]:
-        y = torch.empty((b, l, l, C), dtype=torch.float32,
-                        device=tiles.device)
-        xq, xs = _layer_input(lib, x, cin, rung, stream)
-        _build.check("qr_conv3x3_norm_relu_blocked",
-                     lib.qr_conv3x3_norm_relu_blocked(
-                         xq.data_ptr(), _ptr(xs), blk["w"].data_ptr(),
-                         _ptr(blk.get("scale")), blk["b"].data_ptr(),
-                         y.data_ptr(), b, l, cin, C, bb, ct,
-                         int(double_buffer), rung, stream))
-        x, cin = y, C
-    return _head(lib, tiles, x, cin, packed, rung, with_embed, stream)
+        x = conv_block(lib, x, blk, rung, stream,
+                       blocked=(bb, ct, double_buffer))
+    return _head(lib, tiles, x, packed, rung, with_embed, stream)
 
 
 def fused_extractor_blocked_cuda(tiles: torch.Tensor, packed: dict, *,
@@ -284,10 +322,8 @@ def fused_extractor_blocked_cuda(tiles: torch.Tensor, packed: dict, *,
     bb, ct = block_sizes(b, C, batch_block, channel_tile)
     check_blocked_schedule(channels=C, tile=tiles.shape[1],
                            channel_tile=channel_tile)
-    for blk in packed["blocks"]:
-        if blk["w"].shape[-1] != C or blk["w"].data_ptr() % 16:
-            raise ValueError("the blocked kernel takes one hidden width "
-                             "and 16-byte aligned packed weights")
+    if any(blk["w"].shape[-1] != C for blk in packed["blocks"]):
+        raise ValueError("the blocked kernel takes one hidden width")
     if b == 0:
         return _empty(tiles, packed, with_embed)
     out = _launch_blocked(_build.library(), tiles, packed, rung, bb, ct,

@@ -15,7 +15,9 @@ about 1e-3 at full width); RS outputs exactly equal.  Between kernels
 of the port the contracts are exact: staged ingest (full-image kernel,
 then the tile gather) equals tile-first ingest, and the blocked decode
 kernel equals the flat one, bit for bit, on every candidate schedule
-and channel tile, at every rung.
+and channel tile, at every rung; so does each hidden block alone (the
+flat kernel's C entry point against the blocked one's, fp32 and bf16),
+and a row's logits do not depend on the batch it came in.
 """
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ import torch
 from repro_torch.core import extractor as ex
 from repro_torch.core.rs import codec
 from repro_torch.core import tiling
+from repro_torch.kernels import _build
 from repro_torch.kernels import autotune as at
 from repro_torch.kernels import fused_extractor as fx
 from repro_torch.kernels import fused_preprocess as fp
@@ -298,3 +301,46 @@ def test_rung_ops_count_their_launches(dev, dtype):
     with pytest.raises(ValueError, match="pack"):
         bad = dict(pk, head=dict(pk["head"], w=pk["head"]["w"].double()))
         ops.fused_extractor(tiles, bad)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("channels", [16, 32, 64])
+@pytest.mark.parametrize("l", [16, 32, 64])
+@pytest.mark.parametrize("b", [1, 5, 32])
+def test_hidden_block_flat_equals_blocked_bitwise(dev, dtype, channels, l,
+                                                  b):
+    """Each hidden block alone: layer 0 (cin 3) and a C -> C block, the
+    flat kernel (``qr_conv3x3_norm_relu``) bitwise equal to the blocked
+    one (``qr_conv3x3_norm_relu_blocked``) at ct = C and at ct = C / 2
+    with double buffering, on a batch block that leaves b = 5 ragged."""
+    pk = _rung_pack(dev, dtype, channels=channels, depth=2, tile=l)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rung = fx.RUNGS[dtype]
+    x = torch.as_tensor(np.random.default_rng(b * l + channels).uniform(
+        -2.0, 2.5, (b, l, l, 3)).astype(np.float32)).to(dev)
+    for layer, blk in enumerate(pk["blocks"]):
+        flat = fx.conv_block(lib, x, blk, rung, stream)
+        for ct, db in ((channels, False), (channels // 2, True)):
+            got = fx.conv_block(lib, x, blk, rung, stream,
+                                blocked=(2, ct, db))
+            torch.cuda.synchronize()
+            assert torch.isfinite(flat).all()
+            assert torch.equal(got, flat), (layer, ct)
+        x = flat
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_full_width_rows_do_not_depend_on_batch(dev, dtype):
+    """Full width (C 64, D 7, l 64, correlation bank) at b=32: rows 7..19
+    decoded alone equal the same rows of the whole batch, logits and
+    embedding."""
+    pk = _rung_pack(dev, dtype, channels=64, depth=7, tile=64)
+    tiles = torch.as_tensor(np.random.default_rng(7).uniform(
+        -2.0, 2.5, (32, 64, 64, 3)).astype(np.float32)).to(dev)
+    full = fx.fused_extractor_cuda(tiles, pk, with_embed=True)
+    part = fx.fused_extractor_cuda(tiles[7:20].contiguous(), pk,
+                                   with_embed=True)
+    torch.cuda.synchronize()
+    assert torch.equal(part[0], full[0][7:20])
+    assert torch.equal(part[1], full[1][7:20])

@@ -155,6 +155,30 @@ def test_check_pack_takes_each_rung_and_refuses_mixed_packs():
             fx._check_pack(tiles, pk)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("where", ["blocks", "to_bits"])
+def test_check_pack_refuses_unaligned_conv_weights(dtype, where):
+    """The decode kernels copy conv weights in 16-byte chunks: a pack
+    whose conv weight starts off a 16-byte boundary is refused, as is a
+    tile size the 16x16 pixel tiles do not divide."""
+    tiles = torch.zeros((2, L, L, 3))
+    pk = ex.pack_params(ex.params_from_numpy(ex.init_extractor_numpy(
+        0, n_bits=60, channels=16, depth=2, tile=L)), dtype)
+    assert fx._check_pack(tiles, pk) == fx.RUNGS[dtype]
+    entry = pk["blocks"][1] if where == "blocks" else pk["to_bits"]
+    w = entry["w"]
+    shifted = torch.empty(w.numel() + 16, dtype=w.dtype)
+    off = next(k for k in range(1, 16)
+               if (shifted.data_ptr() + k * w.element_size()) % 16)
+    entry["w"] = shifted[off: off + w.numel()].view(w.shape)
+    entry["w"].copy_(w)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fx._check_pack(tiles, pk)
+    entry["w"] = w
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fx._check_pack(torch.zeros((2, 24, 24, 3)), pk)
+
+
 # -- the decode kernels' plain versions ----------------------------------------
 @pytest.fixture(scope="module", params=["bf16", "int8"])
 def rung(request):
