@@ -596,34 +596,6 @@ def phase_rungs(dev, rng, card: str, cache, regs: dict):
 
 
 # -- phase 3g: the flat fp32 decode's kernels one by one --------------------
-def clocks_during(fn, seconds: float = 1.0) -> str:
-    """The card's SM clock, its maximum and the power draw, as
-    ``nvidia-smi`` reads them halfway through ``seconds`` of ``fn`` run
-    back to back."""
-    import threading
-    import torch
-    stop = threading.Event()
-
-    def spin():
-        while not stop.is_set():
-            for _ in range(20):
-                fn()
-            torch.cuda.synchronize()
-
-    worker = threading.Thread(target=spin)
-    worker.start()
-    try:
-        time.sleep(seconds / 2)
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
-             "--format=csv,noheader"], check=True, capture_output=True,
-            text=True, timeout=60).stdout.strip().splitlines()[0]
-    finally:
-        time.sleep(seconds / 2)
-        stop.set()
-        worker.join()
-
-
 def _regs_of(regs: dict, pattern: str):
     hits = [v for k, v in regs.items() if pattern in k.replace(" ", "")]
     return hits[0] if len(hits) == 1 else None
@@ -633,9 +605,10 @@ def phase_decode_parts(dev, rng, card: str, regs: dict):
     """The fp32 flat decode's CUDA kernels alone at b=32, full width, each
     on the inputs the decode gives it: layer 0 (cin 3 -> 64), a 64 -> 64
     hidden block, to_bits + GAP + corr, the head.  Per kernel: ms per
-    launch (``call_ms`` over 10 back-to-back launches), its bound,
-    launches per decode call, the ``ptxas -v`` registers and spill
-    bytes.  Beside them, as a yardstick
+    launch (``call_ms`` over 10 back-to-back launches), its bound, the
+    ``ptxas -v`` registers and spill bytes; its launches come from the
+    main path's run (:func:`check_part_launches`).  Beside them, as a
+    yardstick
     the port never calls, cuDNN's fp32 conv2d (TF32 off, channels_last)
     on the same 64 -> 64 layer: the conv alone, without bias, norm or
     ReLU, so not the kernel's library_ms."""
@@ -662,33 +635,30 @@ def phase_decode_parts(dev, rng, card: str, regs: dict):
 
     tb = pk["to_bits"]
     rows = [
-        ("conv layer 0 (3 -> 64)", f"conv_regtile_kernel<qr::RF32,{C},3>",
-         1, lambda: fx.conv_block(lib, tiles, blk0, 0, stream),
+        ("conv layer 0 (3 -> 64)", fx.conv_kernel_name(0, 3, C),
+         lambda: fx.conv_block(lib, tiles, blk0, 0, stream),
          *conv_work(tiles, blk0)),
-        (f"conv hidden ({C} -> {C})",
-         f"conv_regtile_kernel<qr::RF32,{C},{C}>", WIDTH["depth"] - 1,
+        (f"conv hidden ({C} -> {C})", fx.conv_kernel_name(0, C, C),
          lambda: fx.conv_block(lib, x1, blk1, 0, stream),
          *conv_work(x1, blk1)),
-        ("to_bits + GAP + corr", f"gap_corr_regtile_kernel<qr::RF32,{C}>",
-         1, lambda: fx.to_bits_partials(lib, tiles, x2, pk, 0, stream),
+        ("to_bits + GAP + corr", fx.to_bits_kernel_name(0, C, nb),
+         lambda: fx.to_bits_partials(lib, tiles, x2, pk, 0, stream),
          4 * (x2.numel() + tiles.numel() + tb["w"].numel() + nb +
               pk["corr"].numel() + 2 * n_parts * nb),
          npix * (2 * 9 * C * nb + 2 * nb) + npix * 3 * (11 + 2 * nb)),
-        ("head", "head_kernel<float,60>", 1,
+        ("head", fx.head_kernel_name(0, nb),
          lambda: fx.head_logits(lib, *parts, pk, 0, l, False, stream),
          4 * (2 * n_parts * nb + pk["head"]["w"].numel() + 2 * nb + b * nb),
          b * (2 * nb * nb + 2 * (n_parts // b) * nb + 3 * nb)),
     ]
     out = []
-    for name, kernel, launches, fn, n_bytes, n_ops in rows:
+    for name, kernel, fn, n_bytes, n_ops in rows:
         bound_ms, by = bound(n_bytes, n_ops, PEAK_FP32_S)
         r = _regs_of(regs, kernel)
-        out.append(dict(name=name, kernel=kernel, launches_per_call=launches,
-                        ms=call_ms(fn, reps=10), bound_ms=bound_ms,
-                        bound_by=by,
+        out.append(dict(name=name, kernel=kernel, ms=call_ms(fn, reps=10),
+                        bound_ms=bound_ms, bound_by=by,
                         registers=None if r is None else r[0],
                         spill_bytes=None if r is None else r[1] + r[2]))
-    clocks = clocks_during(lambda: fx.conv_block(lib, x1, blk1, 0, stream))
     # the yardstick: the same 64 -> 64 conv through cuDNN, fp32 throughout
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -709,16 +679,42 @@ def phase_decode_parts(dev, rng, card: str, regs: dict):
     print(f"flat fp32 decode kernels alone, b=32, full width, on {card} "
           f"(ms per launch, median of 20 samples of 10 launches):")
     for r in out:
-        print(f"  {r['name']}: {r['ms']:.4f} ms x{r['launches_per_call']}, "
+        print(f"  {r['name']}: {r['ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4g} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.1%} of it; registers "
               f"{r['registers']}, spill bytes {r['spill_bytes']}")
-    print(f"  SM clock, max SM clock, power draw during the {C} -> {C} "
-          f"conv back to back: {clocks}")
     print(f"  yardstick, never called by the port: cuDNN conv2d fp32 (TF32 "
           f"off, channels_last) {C} -> {C}, conv alone: {cudnn_ms:.4f} ms "
           f"(+ bias/norm/ReLU in torch within {dev_err:.3g} of the kernel)")
-    return out, cudnn_ms, clocks
+    return out, cudnn_ms
+
+
+def check_part_launches(parts, kernel_counts, traced, n_batches: int):
+    """Set each flat-decode kernel's ``launches`` to its count in the
+    main path's run (``ops.kernel_launch_counts``, zeroed just before
+    it), and fail unless each ran: layer 0, to_bits and the head once a
+    batch, the hidden conv depth - 1 times, and no other decode kernel.
+    Where the profiled pass over the same batches saw device time, its
+    trace must show each kernel launched as often (``traced``: the
+    profiler's kernel names, spaces removed, and their counts)."""
+    want = {parts[0]["kernel"]: n_batches,
+            parts[1]["kernel"]: (WIDTH["depth"] - 1) * n_batches,
+            parts[2]["kernel"]: n_batches, parts[3]["kernel"]: n_batches}
+    check(kernel_counts == want,
+          f"the default path's decode kernels launched {kernel_counts}, "
+          f"expected {want}")
+    for p in parts:
+        p["launches"] = kernel_counts[p["kernel"]]
+        if traced:
+            seen = sum(n for k, n in traced.items()
+                       if f"::{p['kernel']}(" in k)
+            check(seen == p["launches"],
+                  f"{p['kernel']}: the profiled pass traced {seen} "
+                  f"launches, the counter {p['launches']}")
+    print(f"default path, {n_batches} batches: decode kernel launches "
+          f"{json.dumps({p['kernel']: p['launches'] for p in parts})}"
+          + ("; the profiled pass traced the same" if traced else
+             "; trace counts not measured"))
 
 
 # -- phase 3c: RS decode ---------------------------------------------------
@@ -792,6 +788,7 @@ def phase_end_to_end(card: str):
     ops.reset_launch_counts()
     rep, results = serve_lib.serve(pipe, batches)
     counts = ops.launch_counts()
+    kernel_counts = ops.kernel_launch_counts()
     print(f"end-to-end: launches {json.dumps(counts)}")
     main_path = ("fused_tile_preprocess", "fused_extractor", "rs_decode")
     check(all(counts[k] == len(batches) for k in main_path) and
@@ -827,7 +824,7 @@ def phase_end_to_end(card: str):
           f"{rep.throughput_ips:.1f} images/s on {card} (3 batches of 32, "
           f"tile 64, img 256, raw 288, C=64 D=7; "
           f"{int(margined.sum())}/32 margined rows exact vs plain replay)")
-    return counts, pipe, batches, results
+    return counts, kernel_counts, pipe, batches, results
 
 
 def phase_throughput(pipe, batches, card: str, windows: int = 3,
@@ -850,7 +847,9 @@ def profile_path(pipe, batches, card: str, name: str = "serve"):
     """One more pass over the batches under ``torch.profiler``: device
     busy time by kernel against the wall time (the profiler's own host
     cost inflates the wall, so the idle share is an upper bound).  The
-    trace goes to build/chip_smoke/<name>_trace.json."""
+    trace goes to build/chip_smoke/<name>_trace.json.  Returns the
+    launches per device kernel name (spaces removed), or None where the
+    profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -868,7 +867,7 @@ def profile_path(pipe, batches, card: str, name: str = "serve"):
     if busy_ms == 0:
         print(f"profile {name}: the profiler saw no device time "
               f"(not measured)")
-        return
+        return None
     print(f"profile {name}: {len(batches)} batches, wall {wall_ms:.3f} ms, "
           f"device "
           f"busy {busy_ms:.3f} ms, idle share <= "
@@ -876,6 +875,7 @@ def profile_path(pipe, batches, card: str, name: str = "serve"):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
+    return {e.key.replace(" ", ""): e.count for e in rows}
 
 
 # -- phase 5: the other configurations through the serve launcher ---------
@@ -1116,17 +1116,17 @@ def main() -> int:
         dev, rng, card)
     regs = kernel_registers(log)
     rungs, winner8 = phase_rungs(dev, rng, card, cache, regs)
-    parts, cudnn_ms, clocks = phase_decode_parts(dev, rng, card, regs)
-    phases["fused_extractor"].update(
-        parts=parts, cudnn_conv_yardstick_ms=cudnn_ms,
-        clocks_during_conv=clocks)
+    parts, cudnn_ms = phase_decode_parts(dev, rng, card, regs)
+    phases["fused_extractor"].update(parts=parts,
+                                     cudnn_conv_yardstick_ms=cudnn_ms)
     for name, r in phases.items():
         print(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.3g} ms ({r['bound_by']}), max |err| "
               f"{r['max_abs_err']:.3g}, batch 32, on {card}")
-    counts, pipe, batches, results = phase_end_to_end(card)
+    counts, kernel_counts, pipe, batches, results = phase_end_to_end(card)
     window_ips = phase_throughput(pipe, batches, card)
-    profile_path(pipe, batches, card)
+    traced = profile_path(pipe, batches, card)
+    check_part_launches(parts, kernel_counts, traced, len(batches))
     configs = phase_configs(batches, results,
                             statistics.median(window_ips), cache, winner,
                             winner8, card)
@@ -1173,11 +1173,9 @@ def main() -> int:
                  "replaces": rep, "launches": launches[name],
                  **{k: phases[name][k] for k in keys}}
         if name == "fused_extractor":
-            # each CUDA kernel of the flat decode: its launches in the
-            # main path's run are its launches per call times the calls
-            entry["parts"] = [dict(p, launches=p["launches_per_call"] *
-                                   launches[name])
-                              for p in phases[name]["parts"]]
+            # each CUDA kernel of the flat decode, with its launches in
+            # the main path's run
+            entry["parts"] = phases[name]["parts"]
             entry["cudnn_conv_yardstick_ms"] = \
                 phases[name]["cudnn_conv_yardstick_ms"]
         if name in rung_launches:

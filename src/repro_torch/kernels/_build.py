@@ -56,6 +56,12 @@ launch_counts: Dict[str, int] = {
     "fused_tile_preprocess": 0, "fused_preprocess": 0, "fused_extractor": 0,
     "fused_extractor_blocked": 0, "rs_decode": 0}
 
+# Launches per CUDA kernel of the decode ops, by the kernel's name as
+# ``ptxas`` and the profiler print it without spaces (for example
+# ``conv_regtile_kernel<qr::RF32,64,64>``): the per-layer launchers of
+# ``fused_extractor`` each add one where they launch their kernel.
+kernel_launches: Dict[str, int] = {}
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}

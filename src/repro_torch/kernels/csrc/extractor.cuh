@@ -682,6 +682,8 @@ conv_blocked_kernel(const void* __restrict__ x, const float* __restrict__ xs,
 // the RSTAGES slots of the weight ring.  A row holds RPG threads' pixel
 // groups; a thread's pixel m is RPG * m columns on from its first.
 constexpr int RT = 16, RHW = RT + 2, RHP = 20;
+// tools/torch_regtile_sweep.py rewrites the next line (and the unroll of
+// the channel loop in rt_tap) to build its variants: keep its text.
 constexpr int TM = 8, TN = 8, RSTAGES = 3;
 constexpr int RPG = RT / TM;
 
@@ -807,6 +809,7 @@ __device__ __forceinline__ void rt_tap(const float* a0,
   for (int m = 0; m < TM; ++m)
 #pragma unroll
     for (int n = 0; n < TN; ++n) part[m][n] = 0.f;
+  // tools/torch_regtile_sweep.py rewrites this unroll count
 #pragma unroll 4
   for (int c4 = 0; c4 < CIN; c4 += 4) {
     float4 a[TM];

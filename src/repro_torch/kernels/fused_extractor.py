@@ -48,21 +48,32 @@ from repro_torch.kernels import _build
 # instantiations of the CUDA kernels (csrc/extractor.cuh)
 HIDDEN_CHANNELS = (16, 32, 64)
 N_BITS = (60,)
-# the flat kernels' pixel tiles are 16x16 (fp32, bf16) and 8x16 (int8);
-# each GAP / correlation partial covers an 8x16 (rows, cols) tile
+# the tile size l is a multiple of PIXEL_TILE on both schedules: the
+# pixel tiles are 16x16 (flat fp32 / bf16, blocked) and 8x16 (flat int8);
+# each GAP / correlation partial covers an 8x16 (rows, cols) tile.  The
+# blocked kernel's channel tiles are multiples of 4 dividing the hidden
+# width (see blocked_channel_tiles)
 PIXEL_TILE = 16
 PARTIAL_TILE = (8, 16)
-# blocked conv kernel: 16x16 pixel tiles, channel tiles that are
-# multiples of 4 dividing the hidden width (see blocked_channel_tiles)
-BLOCKED_PIXEL_TILE = 16
 # the C entry points' ``rung`` argument, by the pack's dtype
 RUNGS = {"fp32": 0, "bf16": 1, "int8": 2}
+# each rung's type parameter and head dtype in the kernels' names
+_RUNG_TYPES = ("qr::RF32", "qr::RBF16", "qr::RI8")
+_HEAD_TYPES = ("float", "__nv_bfloat16", "float")
 
 
 def fused_extractor_plain(tiles: torch.Tensor, packed: dict, *,
                           with_embed: bool = False):
     logits, g = extractor_forward_packed_embed(packed, tiles)
     return (logits, g) if with_embed else logits
+
+
+def check_tile(tile: int):
+    """Raise ValueError unless the CUDA decode kernels (either schedule)
+    take tiles of ``tile`` x ``tile`` pixels."""
+    if tile % PIXEL_TILE:
+        raise ValueError(f"tile size {tile} must be a multiple of "
+                         f"{PIXEL_TILE} for the CUDA decode kernels")
 
 
 def _check_pack(tiles: torch.Tensor, packed: dict) -> int:
@@ -72,10 +83,7 @@ def _check_pack(tiles: torch.Tensor, packed: dict) -> int:
             tiles.shape[3] != 3:
         raise ValueError(f"tiles must be (b, l, l, 3), got "
                          f"{tuple(tiles.shape)}")
-    l = tiles.shape[1]
-    if l % PIXEL_TILE:
-        raise ValueError(f"tile size {l} must be a multiple of "
-                         f"{PIXEL_TILE} for the CUDA decode kernel")
+    check_tile(tiles.shape[1])
     dtype = packed_dtype(packed)
     f32 = torch.float32
     cdt = packed["blocks"][0]["w"].dtype
@@ -117,6 +125,38 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _launched(name: str):
+    """Count one launch of the CUDA kernel ``name``
+    (``_build.kernel_launches``)."""
+    _build.kernel_launches[name] = _build.kernel_launches.get(name, 0) + 1
+
+
+def conv_kernel_name(rung: int, cin: int, cout: int,
+                     channel_tile=None) -> str:
+    """The CUDA kernel that ``qr_conv3x3_norm_relu`` (or, with a
+    ``channel_tile``, ``qr_conv3x3_norm_relu_blocked``) launches for
+    this layer at this rung."""
+    r = _RUNG_TYPES[rung]
+    if channel_tile is not None:
+        return f"conv_blocked_kernel<{r},{cout},{channel_tile}>"
+    if rung == RUNGS["int8"]:
+        return f"conv_norm_relu_kernel<{r},{cout}>"
+    return f"conv_regtile_kernel<{r},{cout},{cin}>"
+
+
+def to_bits_kernel_name(rung: int, cin: int, n_bits: int) -> str:
+    """The CUDA kernel that ``qr_conv3x3_gap_corr`` launches."""
+    r = _RUNG_TYPES[rung]
+    if rung == RUNGS["int8"]:
+        return f"conv_gap_corr_kernel<{r},{n_bits}>"
+    return f"gap_corr_regtile_kernel<{r},{cin}>"
+
+
+def head_kernel_name(rung: int, n_bits: int) -> str:
+    """The CUDA kernel that ``qr_extractor_head`` launches."""
+    return f"head_kernel<{_HEAD_TYPES[rung]},{n_bits}>"
+
+
 def _layer_input(lib, x, cin, rung, stream):
     """A conv's input: the activation ``x`` itself, or at int8 its
     quantized words and per-pixel scales (one launch of the pass)."""
@@ -128,6 +168,7 @@ def _layer_input(lib, x, cin, rung, stream):
     s = torch.empty((npix,), dtype=torch.float32, device=x.device)
     _build.check("qr_quantize_rows_int8", lib.qr_quantize_rows_int8(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), npix, cin, stream))
+    _launched("quantize_rows_kernel")
     return q, s
 
 
@@ -138,7 +179,8 @@ def conv_block(lib, x, blk, rung, stream, blocked=None):
     (``qr_conv3x3_norm_relu``), or with ``blocked = (bb, ct,
     double_buffer)`` the blocked one; at int8 after the quantize pass.
     Returns the (b, l, l, cout) activation.  A kernel launch of the op,
-    not the op: it counts nothing."""
+    not the op: it counts in ``kernel_launches``, not in
+    ``launch_counts``."""
     b, l, cin = x.shape[0], x.shape[1], x.shape[3]
     cout = blk["w"].shape[-1]
     y = torch.empty((b, l, l, cout), dtype=torch.float32, device=x.device)
@@ -149,11 +191,13 @@ def conv_block(lib, x, blk, rung, stream, blocked=None):
     if blocked is None:
         _build.check("qr_conv3x3_norm_relu", lib.qr_conv3x3_norm_relu(
             *args, rung, stream))
+        _launched(conv_kernel_name(rung, cin, cout))
     else:
         bb, ct, db = blocked
         _build.check("qr_conv3x3_norm_relu_blocked",
                      lib.qr_conv3x3_norm_relu_blocked(
                          *args, bb, ct, int(db), rung, stream))
+        _launched(conv_kernel_name(rung, cin, cout, ct))
     return y
 
 
@@ -209,6 +253,7 @@ def to_bits_partials(lib, tiles, x, packed, rung, stream):
         tb["b"].data_ptr(), tiles.data_ptr(),
         _ptr(packed["corr"] if has_corr else None), part_gap.data_ptr(),
         _ptr(part_corr), b, l, cin, n_bits, int(has_corr), rung, stream))
+    _launched(to_bits_kernel_name(rung, cin, n_bits))
     return part_gap, part_corr
 
 
@@ -228,6 +273,7 @@ def head_logits(lib, part_gap, part_corr, packed, rung, l, with_embed,
         packed["head"]["w"].data_ptr(), packed["head"]["b"].data_ptr(),
         _ptr(packed["corr_scale"] if has_corr else None), logits.data_ptr(),
         _ptr(embed), b, l, n_bits, int(has_corr), rung, stream))
+    _launched(head_kernel_name(rung, n_bits))
     return (logits, embed) if with_embed else logits
 
 
@@ -268,9 +314,7 @@ def check_blocked_schedule(*, channels: int, tile: int,
             f"{blocked_channel_tiles(channels)} (0 = {channels}) at C="
             f"{channels}: multiples of 4 that divide C; got ct"
             f"{channel_tile}")
-    if tile % BLOCKED_PIXEL_TILE:
-        raise ValueError(f"tile size {tile} must be a multiple of "
-                         f"{BLOCKED_PIXEL_TILE} for the blocked kernel")
+    check_tile(tile)
 
 
 def fused_extractor_blocked_plain(tiles: torch.Tensor, packed: dict, *,

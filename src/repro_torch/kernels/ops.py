@@ -86,6 +86,13 @@ def launch_counts() -> Dict[str, int]:
     return dict(_build.launch_counts)
 
 
+def kernel_launch_counts() -> Dict[str, int]:
+    """Launches per CUDA kernel of the decode ops since the last reset,
+    by kernel name (``_build.kernel_launches``)."""
+    return dict(_build.kernel_launches)
+
+
 def reset_launch_counts():
     for name in _build.launch_counts:
         _build.launch_counts[name] = 0
+    _build.kernel_launches.clear()

@@ -303,6 +303,32 @@ def test_rung_ops_count_their_launches(dev, dtype):
         ops.fused_extractor(tiles, bad)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_decode_kernels_count_their_launches(dev, dtype):
+    """Each CUDA kernel of a decode call counts its own launches, under
+    the name the per-layer launchers give it: depth 3 at C=16 is layer 0,
+    two hidden blocks, to_bits and the head (at int8 one quantize pass
+    before each conv); a blocked call counts the blocked conv instead."""
+    pk = _rung_pack(dev, dtype, channels=16, depth=3, tile=16)
+    tiles = torch.zeros((2, 16, 16, 3), device=dev)
+    r = fx.RUNGS[dtype]
+    tail = {fx.to_bits_kernel_name(r, 16, 60): 1,
+            fx.head_kernel_name(r, 60): 1}
+    if dtype == "int8":
+        tail["quantize_rows_kernel"] = 4
+        flat = {fx.conv_kernel_name(r, 3, 16): 3}
+    else:
+        flat = {fx.conv_kernel_name(r, 3, 16): 1,
+                fx.conv_kernel_name(r, 16, 16): 2}
+    ops.reset_launch_counts()
+    ops.fused_extractor(tiles, pk)
+    assert ops.kernel_launch_counts() == {**flat, **tail}
+    ops.reset_launch_counts()
+    ops.fused_extractor(tiles, pk, schedule=at.Schedule(2, 8, True))
+    assert ops.kernel_launch_counts() == {
+        fx.conv_kernel_name(r, 16, 16, 8): 3, **tail}
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("channels", [16, 32, 64])
 @pytest.mark.parametrize("l", [16, 32, 64])

@@ -179,6 +179,57 @@ def test_check_pack_refuses_unaligned_conv_weights(dtype, where):
         fx._check_pack(torch.zeros((2, 24, 24, 3)), pk)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_kernel_names_name_instantiated_kernels(dtype):
+    """The names under which the decode's per-layer launchers count
+    their launches (``kernel_launches``) are those of ``__global__``
+    templates in the CUDA sources, with as many template arguments and
+    a rung type the sources define; the flat and blocked schedules
+    count distinct kernels, and a reset clears the counts."""
+    import re
+    from repro_torch.kernels import _build, ops
+    src = "".join(f.read_text() for f in sorted(_build.CSRC.glob("*.cu*")))
+    rung = fx.RUNGS[dtype]
+    names = {fx.head_kernel_name(rung, 60)}
+    for c in fx.HIDDEN_CHANNELS:
+        names |= {fx.conv_kernel_name(rung, cin, c) for cin in (3, c)}
+        names |= {fx.conv_kernel_name(rung, c, c, ct)
+                  for ct in fx.blocked_channel_tiles(c)}
+        names.add(fx.to_bits_kernel_name(rung, c, 60))
+    for name in names | {"quantize_rows_kernel"}:
+        fn, _, args = name.partition("<")
+        decl = re.search(r"template\s*<([^>]*)>\s*__global__ void\s*"
+                         r"(?:__launch_bounds__\(.*\)\s*)?" + fn + r"\(",
+                         src)
+        if not args:
+            assert re.search(r"__global__ void " + fn + r"\(", src), name
+            continue
+        assert decl, name
+        args = args.rstrip(">").split(",")
+        assert len(args) == len(decl.group(1).split(",")), name
+        typ = args[0].removeprefix("qr::")
+        assert re.search(r"struct " + typ + r"\b", src) or \
+            typ in ("float", "__nv_bfloat16"), name
+    assert fx.conv_kernel_name(rung, 64, 64) != \
+        fx.conv_kernel_name(rung, 64, 64, 64)
+    _build.kernel_launches["x"] = 1
+    ops.reset_launch_counts()
+    assert ops.kernel_launch_counts() == {}
+
+
+def test_both_schedules_refuse_the_same_tile_sizes():
+    """One pixel-tile rule for both schedules: l a multiple of 16."""
+    for tile in (16, 32, 48, 64):
+        fx.check_tile(tile)
+        fx.check_blocked_schedule(channels=16, tile=tile, channel_tile=0)
+    for tile in (8, 24, 40):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fx.check_tile(tile)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fx.check_blocked_schedule(channels=16, tile=tile,
+                                      channel_tile=0)
+
+
 # -- the decode kernels' plain versions ----------------------------------------
 @pytest.fixture(scope="module", params=["bf16", "int8"])
 def rung(request):

@@ -24,6 +24,9 @@ bank), at fp32 and bf16, in two interleaved rounds:
   for bit (a variant that differs fails the run);
 * ``ptxas -v`` registers and spill bytes of its 64 -> 64 conv kernel.
 
+Besides, ``nvidia-smi`` reads the SM clock, its maximum and the power
+draw while the checkout's fp32 64 -> 64 conv runs back to back.
+
 ``--parent DIR`` adds the extractor sources of another checkout (for
 example an unpacked parent commit) as one more variant, ``parent``, held
 to the same bits and timed in the same rounds.
@@ -37,8 +40,11 @@ import ctypes
 import json
 import re
 import shutil
+import subprocess
 import statistics
 import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +56,33 @@ SOURCES = ("fused_extractor.cu", "fused_extractor_bf16.cu",
            "fused_extractor_int8.cu")
 TILE_LINE = "constexpr int TM = 8, TN = 8, RSTAGES = 3;"
 UNROLL_LINE = "#pragma unroll 4\n  for (int c4 = 0;"
+
+
+def clocks_during(fn, seconds: float = 1.0) -> str:
+    """The card's SM clock, its maximum and the power draw, as
+    ``nvidia-smi`` reads them halfway through ``seconds`` of ``fn`` run
+    back to back."""
+    import torch
+    stop = threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+
+    worker = threading.Thread(target=spin)
+    worker.start()
+    try:
+        time.sleep(seconds / 2)
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+             "--format=csv,noheader"], check=True, capture_output=True,
+            text=True, timeout=60).stdout.strip().splitlines()[0]
+    finally:
+        time.sleep(seconds / 2)
+        stop.set()
+        worker.join()
 
 
 def variant_header(text: str, name: str) -> str:
@@ -191,6 +224,9 @@ def main() -> int:
         for v in variants:
             res[v][dtype] = {k: statistics.median(x)
                              for k, x in samples[v].items()}
+        if dtype == "fp32":
+            clocks = clocks_during(lambda: fx.conv_block(
+                base, x1, pk["blocks"][1], rung, stream))
     print(f"register-tile variants, b=32, C 64, D 7, l 64, on {card}; ms "
           f"(conv 64->64 and to_bits per launch, decode per call); "
           f"every variant bitwise equal to the checkout's kernels:")
@@ -202,8 +238,11 @@ def main() -> int:
               f" | bf16 conv {r['bf16']['conv']:.4f} to_bits "
               f"{r['bf16']['to_bits']:.4f} decode {r['bf16']['decode']:.4f}"
               f" | conv<RF32,64,64> {regs} registers, {spill} spill bytes")
+    print(f"  SM clock, max SM clock, power draw during the checkout's "
+          f"fp32 64->64 conv back to back: {clocks}")
     (OUT / "sweep.json").write_text(json.dumps(
-        {"card": card, "variants": res}, indent=1))
+        {"card": card, "variants": res, "clocks_during_conv": clocks},
+        indent=1))
     return 0
 
 
