@@ -27,7 +27,12 @@ In order, it
    cache under its own key; then the flat fp32 decode's kernels one by
    one at b=32 (layer 0, a 64 -> 64 block, to_bits + GAP + corr, the
    head: ms per launch, bound, registers, spills) beside cuDNN's fp32
-   conv2d on the same layer as a yardstick the port never calls;
+   conv2d on the same layer as a yardstick the port never calls; the RS
+   syndrome kernel against the Berlekamp-Welch plain version on every
+   single-symbol pattern of 16 codewords (and of 256 at B = 65536), on
+   2-4 symbol errors and uniform words, its one kernel per call traced
+   by the profiler, its call ms and ``ptxas -v`` registers, stack frame
+   and spills (none);
 4. drives the serve launcher's code path (``repro_torch.launch.serve``)
    at full width for 3 batches of 32 synthetic images, checks that every
    kernel of the path was launched, replays one batch through the plain
@@ -431,20 +436,21 @@ def phase_blocked(dev, rng, card: str):
 # -- phase 3f: the bf16 and int8 rungs of both decode kernels --------------
 def kernel_registers(log: str) -> dict:
     """``ptxas -v`` per kernel: {name: (registers, spill stores, spill
-    loads)}, names demangled where ``c++filt`` is there."""
+    loads, stack frame bytes)}, names demangled where ``c++filt`` is
+    there."""
     import re
     rows, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name, spill = m.group(1), (0, 0)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+            name, frame = m.group(1), (0, 0, 0)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            spill = (int(m.group(1)), int(m.group(2)))
+            frame = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            rows.append((name, int(m.group(1))) + spill)
+            rows.append((name, int(m.group(1))) + frame)
             name = None
     try:
         names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
@@ -452,7 +458,18 @@ def kernel_registers(log: str) -> dict:
                                timeout=60).stdout.splitlines()
     except (OSError, subprocess.SubprocessError):
         names = [r[0] for r in rows]
-    return {n.split("(")[0]: r[1:] for n, r in zip(names, rows)}
+    return {_without_args(n): r[1:] for n, r in zip(names, rows)}
+
+
+def _without_args(name: str) -> str:
+    """A demangled name without its trailing argument list (the name
+    itself may hold parentheses: ``(anonymous namespace)::f``)."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += (name[i] == ")") - (name[i] == "(")
+        if depth == 0:
+            return name[:i] if name.endswith(")") else name
+    return name
 
 
 def rung_pack(dev, dtype: str):
@@ -718,17 +735,31 @@ def check_part_launches(parts, kernel_counts, traced, n_batches: int):
 
 
 # -- phase 3c: RS decode ---------------------------------------------------
-def rs_words(rng, n_each: int) -> np.ndarray:
-    """Codewords with 0, 1 and 2 symbol errors, and uniform words."""
+RS_KERNEL = "rs_syndrome_decode_kernel"
+
+
+def flip_symbol(word: np.ndarray, pos: int, value: int) -> np.ndarray:
+    out = word.copy()
+    out[4 * pos:4 * pos + 4] ^= (value >> np.arange(3, -1, -1)) & 1
+    return out
+
+
+def rs_words(rng, n_codewords: int, n_each: int) -> np.ndarray:
+    """Every single-symbol pattern (15 positions x 16 values, 0 included)
+    on ``n_codewords`` random codewords, ``n_each`` codewords with 2, 3
+    and 4 symbol errors each, and ``n_each`` uniform words, shuffled.
+    Codewords are XORs of the unit messages' (the code is linear over
+    GF(2) bit by bit)."""
     from repro_torch.core.rs.codec import DEFAULT_CODE, rs_encode
-    rows = []
-    for n_err in (0, 1, 2):
-        for _ in range(n_each):
-            cw = rs_encode(DEFAULT_CODE, rng.integers(0, 2, 48)).copy()
-            for sym in rng.choice(15, n_err, replace=False):
-                flip = int(rng.integers(1, 16))
-                cw[sym * 4: sym * 4 + 4] ^= (flip >> np.arange(3, -1, -1)) & 1
-            rows.append(cw)
+    gen = np.stack([rs_encode(DEFAULT_CODE, e) for e in np.eye(48, dtype=int)])
+    rows = [flip_symbol(cw, p, v)
+            for cw in rng.integers(0, 2, (n_codewords, 48)) @ gen % 2
+            for p in range(15) for v in range(16)]
+    for n_err in (2, 3, 4):
+        for w in rng.integers(0, 2, (n_each, 48)) @ gen % 2:
+            for p in rng.choice(15, n_err, replace=False):
+                w = flip_symbol(w, int(p), int(rng.integers(1, 16)))
+            rows.append(w)
     rows += list(rng.integers(0, 2, (n_each, 60)))
     words = np.stack(rows).astype(np.int32)
     return words[rng.permutation(len(words))]
@@ -739,35 +770,105 @@ def rs_int_ops(n_words: int) -> float:
     the words: unpack 60 bits (2 ops each), two syndromes over 15
     symbols (a table multiply and an xor each), locate and size the one
     error through the log/exp tables (~10), and pack the 108 output bits
-    (2 ops each).  The kernel runs the reference's Berlekamp-Welch
-    elimination instead, far more work; the bound counts the function's,
-    not the kernel's."""
+    (2 ops each)."""
     return float(n_words * (2 * 60 + 2 * 15 * 2 + 10 + 2 * 108))
 
 
-def phase_rs(dev, rng):
+def rs_bound(n_words: int):
+    """(bound ms, what bounds it) of decoding ``n_words`` words: each
+    reads 60 int32 bits and writes 48 + 60 int32 bits, an int32
+    n_corrected and a one-byte ok."""
+    return bound(n_words * (4 * (60 + 48 + 60 + 1) + 1),
+                 rs_int_ops(n_words), PEAK_INT32_S)
+
+
+def phase_rs(dev, rng, card: str, regs: dict):
+    """The syndrome kernel against the Berlekamp-Welch plain version on
+    every single-symbol pattern of 16 codewords, 2-4 symbol errors and
+    uniform words, at B = 1, 5, 32, the whole set (5888) and 65536 (256
+    codewords' patterns; 16384 blocks): all four outputs exact, dtypes
+    included.  One call counts one launch.  Call ms at B = 32 beside the
+    bound and the kernel's ``ptxas -v`` registers, stack frame and
+    spills (none allowed); ms per launch at B = 65536 (10 back to back)
+    beside its bound."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels import rs_decode as rs
-    cases = [rs_words(rng, 8), rs_words(rng, 1)[:1], rs_words(rng, 2)[:5],
-             rs_words(rng, 1024)]
-    main = None
+    full = rs_words(rng, 16, 512)
+    cases = [full[:32], full[32:33], full[33:38], full,
+             rs_words(rng, 256, 1024)]
     for words in cases:
         bits = torch.as_tensor(words).to(dev)
         got = rs.rs_decode_cuda(bits)
         want = rs.rs_decode_plain(bits)
         torch.cuda.synchronize()
         for k in want:
-            check(torch.equal(got[k], want[k]),
+            check(got[k].dtype == want[k].dtype and
+                  torch.equal(got[k], want[k]),
                   f"rs B={len(words)}: {k} differs from the plain version")
-        if main is None:
-            main = (words, bits)
-    words, bits = main
+    check(got["ok"].dtype == torch.bool, "rs: ok is not torch.bool")
+    outcomes = torch.unique(want["n_corrected"]).tolist()
+    check(outcomes == [-1, 0, 1], f"rs: outcomes {outcomes}")
+    big_ms = call_ms(lambda: rs.rs_decode_cuda(bits), reps=10)
+    big_bound, _ = rs_bound(len(bits))
+    bits = torch.as_tensor(cases[0]).to(dev)
+    ops.reset_launch_counts()
+    ops.rs_decode(bits)
+    n = ops.launch_counts()["rs_decode"]
+    check(n == 1, f"rs: one call counted {n} launches")
     times = timings(lambda: rs.rs_decode_cuda(bits),
                     lambda: rs.rs_decode_plain(bits), plain_iters=5)
-    n_bytes = 4 * len(words) * (60 + 48 + 60 + 1 + 1)
-    bound_ms, by = bound(n_bytes, rs_int_ops(len(words)), PEAK_INT32_S)
+    bound_ms, by = rs_bound(len(bits))
+    r = _regs_of(regs, RS_KERNEL)
+    check(r is not None and r[1] == r[2] == r[3] == 0,
+          f"rs: ptxas -v shows a stack frame or spills: {r}")
+    print(f"rs_decode ({RS_KERNEL}) on {card}: equal to the plain version "
+          f"on {', '.join(str(len(c)) for c in cases)} words; B=32: "
+          f"{times['ms']:.4f} ms a call, bound {bound_ms:.3g} ms ({by}), plain "
+          f"{times['plain_ms']:.4f} ms; registers {r[0]}, stack {r[3]} B, "
+          f"spill stores {r[1]} B, spill loads {r[2]} B; B={len(cases[-1])}: "
+          f"{big_ms:.4f} ms a launch, bound {big_bound:.3g} ms")
     return dict(max_abs_err=0.0, bound_ms=bound_ms, bound_by=by,
-                library_ms=None, **times)
+                library_ms=None, kernel=RS_KERNEL, registers=r[0],
+                stack_bytes=r[3], spill_bytes=r[1] + r[2],
+                large_b=dict(b=len(cases[-1]), ms=big_ms,
+                             bound_ms=big_bound), **times)
+
+
+def rs_device_ms(dev, rng, card: str, calls: int = 20):
+    """``calls`` calls of the RS wrapper at B = 32 under the profiler:
+    every device kernel they launch must be the RS kernel (no cast kernel
+    after it); returns its device ms per launch, or None where the
+    profiler saw no device time.  Run after the main path's profiled
+    pass, whose launch counts are checked: a later profiler session in
+    the process can miss its first few device events, so the launches
+    are read and reported here, not required to equal ``calls``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import rs_decode as rs
+    bits = torch.as_tensor(rs_words(rng, 1, 8)[:32]).to(dev)
+    rs.rs_decode_cuda(bits)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            rs.rs_decode_cuda(bits)
+        torch.cuda.synchronize()
+    traced = {e.key: (e.count, e.self_device_time_total / 1e3 / e.count)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count}
+    if not sum(ms for _, ms in traced.values()):
+        print("rs_decode: the profiler saw no device time (not measured)")
+        return None
+    check(len(traced) == 1 and RS_KERNEL in next(iter(traced)) and
+          0 < next(iter(traced.values()))[0] <= calls,
+          f"rs: {calls} calls launched {traced}, expected {RS_KERNEL} "
+          f"and nothing else")
+    n, ms = next(iter(traced.values()))
+    print(f"rs_decode: {calls} calls at B=32 traced {n} device kernel "
+          f"launches, all {RS_KERNEL}, {ms:.4f} ms each on {card}")
+    return ms
 
 
 # -- phase 4: the main path through the serve launcher ---------------------
@@ -872,7 +973,7 @@ def profile_path(pipe, batches, card: str, name: str = "serve"):
           f"device "
           f"busy {busy_ms:.3f} ms, idle share <= "
           f"{1 - busy_ms / wall_ms:.3f} on {card}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
     return {e.key.replace(" ", ""): e.count for e in rows}
@@ -1108,13 +1209,13 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    regs = kernel_registers(log)
     phases = {"fused_tile_preprocess": phase_ingest(dev, rng),
               "fused_extractor": phase_extractor(dev, rng),
-              "rs_decode": phase_rs(dev, rng),
+              "rs_decode": phase_rs(dev, rng, card, regs),
               "fused_preprocess": phase_preprocess(dev, rng)}
     phases["fused_extractor_blocked"], cache, winner = phase_blocked(
         dev, rng, card)
-    regs = kernel_registers(log)
     rungs, winner8 = phase_rungs(dev, rng, card, cache, regs)
     parts, cudnn_ms = phase_decode_parts(dev, rng, card, regs)
     phases["fused_extractor"].update(parts=parts,
@@ -1131,6 +1232,7 @@ def main() -> int:
                             statistics.median(window_ips), cache, winner,
                             winner8, card)
     phase_golden()
+    phases["rs_decode"]["device_ms"] = rs_device_ms(dev, rng, card)
 
     # launches: each kernel's count on the path that runs it (the
     # default path, or its own configuration's serve run)
@@ -1178,6 +1280,10 @@ def main() -> int:
             entry["parts"] = phases[name]["parts"]
             entry["cudnn_conv_yardstick_ms"] = \
                 phases[name]["cudnn_conv_yardstick_ms"]
+        if name == "rs_decode":
+            entry.update({k: phases[name][k] for k in (
+                "kernel", "device_ms", "registers", "stack_bytes",
+                "spill_bytes", "large_b")})
         if name in rung_launches:
             entry["rungs"] = ["fp32", *RUNGS]
             entry["by_rung"] = {dt: {"launches": rung_launches[name][dt],

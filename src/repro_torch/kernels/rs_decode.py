@@ -1,4 +1,4 @@
-"""Batched Reed-Solomon Berlekamp-Welch decode, RS(15,12) over GF(16)
+"""Batched Reed-Solomon t = 1 decode, RS(15,12) over GF(16)
 (counterpart of ``repro.kernels.rs_decode.rs_decode_batch``).
 
 * :func:`rs_decode_plain` — the reference kernel's branch-free batched
@@ -8,13 +8,18 @@
   the first K error-free positions by rank prefix-sum, Lagrange
   re-interpolation;
 * :func:`rs_decode_cuda` — the hand-written CUDA kernel
-  (``csrc/rs_decode.cu``), one thread per codeword.
+  (``csrc/rs_decode.cu``), a closed-form t = 1 syndrome decoder, one
+  warp a codeword.  On bits in {0, 1} it equals the Berlekamp-Welch
+  reference on all four outputs (the argument is in the source's note;
+  ``tests/test_torch_rs.py`` holds a numpy model of its arithmetic to
+  JAX's Pallas kernel and to the plain version).
 
 Both map bits (B, 60) -> dict(message_bits (B, 48) int32,
 codeword_bits (B, 60) int32, ok (B,) bool, n_corrected (B,) int32);
 on failure the codeword is the received word and n_corrected is -1.
-The outputs are integers and equal the reference's exactly, tie-breaks
-and degenerate inputs included.  Only the default code is ported; other
+The outputs are integers and equal the reference's exactly (the plain
+version on any int input, tie-breaks and degenerate inputs included;
+the kernel on {0, 1} bits).  Only the default code is ported; other
 codes go to the batched ``jax_rs`` counterpart (ROADMAP queue 1
 item 8).
 """
@@ -175,18 +180,21 @@ def rs_decode_plain(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def rs_decode_cuda(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The CUDA kernel: same contract as the plain version; ``bits``
-    must be a contiguous int32 (B, 60) CUDA tensor."""
+    """The CUDA kernel: same contract as the plain version on bits in
+    {0, 1}, as the ``bits`` stage makes them (on other values the
+    plain version's carry-less arithmetic is not modelled); ``bits``
+    must be a contiguous, 8-byte aligned int32 (B, 60) CUDA tensor.
+    Launches the kernel and nothing else."""
     if bits.device.type != "cuda" or bits.dtype != torch.int32 or \
             bits.dim() != 2 or bits.shape[1] != N * M or \
-            not bits.is_contiguous():
-        raise ValueError(f"rs_decode_cuda needs contiguous int32 (B, "
-                         f"{N * M}) CUDA bits, got {bits.dtype} "
+            not bits.is_contiguous() or bits.data_ptr() % 8:
+        raise ValueError(f"rs_decode_cuda needs contiguous, 8-byte aligned "
+                         f"int32 (B, {N * M}) CUDA bits, got {bits.dtype} "
                          f"{tuple(bits.shape)} on {bits.device}")
     B = bits.shape[0]
     msg = torch.empty((B, K * M), dtype=torch.int32, device=bits.device)
     cw = torch.empty((B, N * M), dtype=torch.int32, device=bits.device)
-    ok = torch.empty((B,), dtype=torch.int32, device=bits.device)
+    ok = torch.empty((B,), dtype=torch.bool, device=bits.device)
     ncorr = torch.empty((B,), dtype=torch.int32, device=bits.device)
     if B:
         err = _build.library().qr_rs_decode(
@@ -195,5 +203,5 @@ def rs_decode_cuda(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
             torch.cuda.current_stream(bits.device).cuda_stream)
         _build.check("qr_rs_decode", err)
         _build.launch_counts["rs_decode"] += 1
-    return {"message_bits": msg, "codeword_bits": cw, "ok": ok.bool(),
+    return {"message_bits": msg, "codeword_bits": cw, "ok": ok,
             "n_corrected": ncorr}

@@ -122,15 +122,52 @@ def _rs_words(seed: int) -> np.ndarray:
     return np.stack(rows).astype(np.int32)
 
 
-@pytest.mark.parametrize("n", [1, 5, 32, 643])
+def _flip_symbol(word: np.ndarray, pos: int, value: int) -> np.ndarray:
+    out = word.copy()
+    out[4 * pos:4 * pos + 4] ^= (value >> np.arange(3, -1, -1)) & 1
+    return out
+
+
+def _rs_exhaustive_words(seed: int = 0) -> np.ndarray:
+    """Every single-symbol pattern (15 positions x 16 values, 0 included)
+    on 16 random codewords, 512 codewords each with 2, 3 and 4 symbol
+    errors, and 512 uniform words: 5888 rows.  Codewords are XORs of the
+    unit messages' (the code is linear over GF(2) bit by bit)."""
+    rng = np.random.default_rng(seed)
+    gen = np.stack([codec.rs_encode(codec.DEFAULT_CODE, e)
+                    for e in np.eye(48, dtype=int)])
+    rows = [_flip_symbol(cw, p, v)
+            for cw in rng.integers(0, 2, (16, 48)) @ gen % 2
+            for p in range(15) for v in range(16)]
+    for n_err in (2, 3, 4):
+        for w in rng.integers(0, 2, (512, 48)) @ gen % 2:
+            for p in rng.choice(15, n_err, replace=False):
+                w = _flip_symbol(w, int(p), int(rng.integers(1, 16)))
+            rows.append(w)
+    rows += list(rng.integers(0, 2, (512, 60)))
+    return np.stack(rows).astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 5, 32, 643, "exhaustive"])
 def test_rs_kernel_equals_plain(dev, n):
-    words = torch.as_tensor(_rs_words(n)[-n:]).to(dev)
+    """The syndrome kernel equals the Berlekamp-Welch plain version on
+    all four outputs, dtypes included (``ok`` is bool)."""
+    words = _rs_exhaustive_words() if n == "exhaustive" else \
+        _rs_words(n)[-n:]
+    words = torch.as_tensor(words).to(dev)
     want = rs.rs_decode_plain(words)
     got = rs.rs_decode_cuda(words)
     torch.cuda.synchronize()
     for k in want:
         assert got[k].dtype == want[k].dtype
         assert torch.equal(got[k], want[k]), k
+
+
+def test_rs_kernel_rejects_misaligned_bits(dev):
+    """The kernel loads two bits a lane as one 8-byte int2."""
+    flat = torch.zeros(61, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        rs.rs_decode_cuda(flat[1:].view(1, 60))
 
 
 def test_cuda_input_goes_to_the_kernels(dev):

@@ -1,7 +1,8 @@
 """PyTorch port: isolation from JAX and the CUDA-by-default contract.
 
-``repro_torch`` and ``chip_smoke.py`` must import nothing of ``jax`` and
-nothing of the JAX package ``repro``: a subprocess with both blocked in
+``repro_torch``, ``chip_smoke.py`` and the port's card tools
+(``tools/torch_*.py``) must import nothing of ``jax`` and nothing of
+the JAX package ``repro``: a subprocess with both blocked in
 ``sys.modules`` imports every port module and runs ``detect_batch`` on
 the CPU.  The entry points run on the card unless the caller asks for
 the CPU, and ``chip_smoke.py`` exits non-zero with no result line when
@@ -75,7 +76,8 @@ def _imported_modules(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py"] +
+                         sorted((ROOT / "tools").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     for mod in _imported_modules(path):
