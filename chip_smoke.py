@@ -26,13 +26,18 @@ In order, it
    ``ptxas -v`` registers and spills; and an int8 sweep into the same
    cache under its own key; then the flat fp32 decode's kernels one by
    one at b=32 (layer 0, a 64 -> 64 block, to_bits + GAP + corr, the
-   head: ms per launch, bound, registers, spills) beside cuDNN's fp32
-   conv2d on the same layer as a yardstick the port never calls; the RS
-   syndrome kernel against the Berlekamp-Welch plain version on every
-   single-symbol pattern of 16 codewords (and of 256 at B = 65536), on
-   2-4 symbol errors and uniform words, its one kernel per call traced
-   by the profiler, its call ms and ``ptxas -v`` registers, stack frame
-   and spills (none);
+   head: ms per launch, bound, registers, spills (none)) beside cuDNN's fp32
+   conv2d on the same layer as a yardstick the port never calls, and
+   the flat int8 decode's tensor-core kernels the same way (bounds at the
+   int8 peak, with int8 activations) beside ``torch._int_mm`` on the
+   layer's im2col, their IMMA instructions counted in the SASS
+   (``cuobjdump -sass``); the RS syndrome kernel against the
+   Berlekamp-Welch plain version on every single-symbol pattern of 16
+   codewords (and of 256 at B = 65536), on 2-4 symbol errors and uniform
+   words, and on words with entries outside {0, 1} (alone, among {0, 1}
+   words, as int64 and as bool bits), its one kernel per call traced by
+   the profiler, its call ms and ``ptxas -v`` registers, stack frame and
+   spills (none);
 4. drives the serve launcher's code path (``repro_torch.launch.serve``)
    at full width for 3 batches of 32 synthetic images, checks that every
    kernel of the path was launched, replays one batch through the plain
@@ -49,7 +54,10 @@ In order, it
    launch counts and its results against the default path's (the rungs'
    bits wherever the fp32 logit clears the rungs' margin), and prints
    images/s for each and the ratio of the default path's median window
-   to each sequential run;
+   to each sequential run; the ``--decode-dtype int8`` run's launches per
+   decode kernel, matched to its profiled pass, with no quantize pass;
+   the ingest's and the RS kernel's device ms a launch in the default
+   path's profiled pass;
 6. checks the default and the staged path, and the bf16 and int8 rungs,
    against the JAX package's golden outputs
    (``tests/data/torch_port_golden.npz``);
@@ -434,44 +442,6 @@ def phase_blocked(dev, rng, card: str):
 
 
 # -- phase 3f: the bf16 and int8 rungs of both decode kernels --------------
-def kernel_registers(log: str) -> dict:
-    """``ptxas -v`` per kernel: {name: (registers, spill stores, spill
-    loads, stack frame bytes)}, names demangled where ``c++filt`` is
-    there."""
-    import re
-    rows, name = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name, frame = m.group(1), (0, 0, 0)
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and name:
-            frame = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            rows.append((name, int(m.group(1))) + frame)
-            name = None
-    try:
-        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
-                               capture_output=True, text=True, check=True,
-                               timeout=60).stdout.splitlines()
-    except (OSError, subprocess.SubprocessError):
-        names = [r[0] for r in rows]
-    return {_without_args(n): r[1:] for n, r in zip(names, rows)}
-
-
-def _without_args(name: str) -> str:
-    """A demangled name without its trailing argument list (the name
-    itself may hold parentheses: ``(anonymous namespace)::f``)."""
-    depth = 0
-    for i in range(len(name) - 1, -1, -1):
-        depth += (name[i] == ")") - (name[i] == "(")
-        if depth == 0:
-            return name[:i] if name.endswith(")") else name
-    return name
-
-
 def rung_pack(dev, dtype: str):
     from repro_torch.core.extractor import (init_extractor_numpy,
                                             pack_params, params_from_numpy)
@@ -582,9 +552,9 @@ def phase_rungs(dev, rng, card: str, cache, regs: dict):
         print("  call ms at b=32: " + ", ".join(
             f"{n} {ms:.4f}" for n, ms in sorted(sched_ms.items(),
                                                key=lambda kv: kv[1])))
-        tag = {"bf16": "RBF16", "int8": "RI8"}[dtype]
-        extra = {"bf16": "__nv_bfloat16", "int8": "quantize_rows"}[dtype]
-        mine = {k: v for k, v in regs.items() if tag in k or extra in k}
+        tags = {"bf16": ("RBF16", "__nv_bfloat16"),
+                "int8": ("RI8", "quantize_rows", "imma_kernel")}[dtype]
+        mine = {k: v for k, v in regs.items() if any(t in k for t in tags)}
         print("  registers / spill stores / spill loads: " + "; ".join(
             f"{k.replace('qr::', '').replace('void ', '')} {v[0]}/{v[1]}/"
             f"{v[2]}" for k, v in sorted(mine.items())))
@@ -612,123 +582,185 @@ def phase_rungs(dev, rng, card: str, cache, regs: dict):
     return out, winner
 
 
-# -- phase 3g: the flat fp32 decode's kernels one by one --------------------
-def _regs_of(regs: dict, pattern: str):
-    hits = [v for k, v in regs.items() if pattern in k.replace(" ", "")]
-    return hits[0] if len(hits) == 1 else None
-
-
-def phase_decode_parts(dev, rng, card: str, regs: dict):
-    """The fp32 flat decode's CUDA kernels alone at b=32, full width, each
-    on the inputs the decode gives it: layer 0 (cin 3 -> 64), a 64 -> 64
+# -- phase 3g: the flat decode's kernels one by one, fp32 and int8 --------
+def phase_decode_parts(dev, rng, card: str, regs: dict, dtype: str = "fp32"):
+    """The flat decode's CUDA kernels alone at b=32, full width, each on
+    the inputs the decode gives it: layer 0 (cin 3 -> 64), a 64 -> 64
     hidden block, to_bits + GAP + corr, the head.  Per kernel: ms per
-    launch (``call_ms`` over 10 back-to-back launches), its bound, the
-    ``ptxas -v`` registers and spill bytes; its launches come from the
-    main path's run (:func:`check_part_launches`).  Beside them, as a
-    yardstick
-    the port never calls, cuDNN's fp32 conv2d (TF32 off, channels_last)
-    on the same 64 -> 64 layer: the conv alone, without bias, norm or
-    ReLU, so not the kernel's library_ms."""
+    launch (``call_ms`` over 10 back-to-back launches), its bound (fp32:
+    FFMA peak, fp32 activations; int8: the int8 tensor cores' peak, int8
+    words and a scale a pixel in and out), the ``ptxas -v`` registers and
+    spill bytes (the phase fails on any spill); its launches come from
+    the path's run (:func:`check_part_launches`).  Beside them, as a
+    yardstick the port never calls, the same 64 -> 64 layer's product in
+    one library call:
+    fp32, cuDNN's conv2d (TF32 off, channels_last), the conv alone,
+    without bias, norm or ReLU; int8, ``torch._int_mm`` on its im2col
+    (the exact int32 dot of one tap-stacked matrix, without the per-tap
+    dequantize, the norm or the quantize), so neither is the kernel's
+    library_ms.  Returns (parts, yardstick ms)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_extractor as fx
     l, b, C, nb = FULL["tile"], 32, WIDTH["channels"], WIDTH["n_bits"]
-    pk = rung_pack(dev, "fp32")
+    r8 = dtype == "int8"
+    rung = fx.RUNGS[dtype]
+    pk = rung_pack(dev, dtype)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     tiles = torch.as_tensor(rng.uniform(-2.0, 2.5, (b, l, l, 3)).astype(
         np.float32)).to(dev)
     blk0, blk1 = pk["blocks"][0], pk["blocks"][1]
-    x1 = fx.conv_block(lib, tiles, blk0, 0, stream)
-    x2 = fx.conv_block(lib, x1, blk1, 0, stream)
-    parts = fx.to_bits_partials(lib, tiles, x2, pk, 0, stream)
+    x1 = fx.conv_block(lib, tiles, blk0, rung, stream)
+    x2 = fx.conv_block(lib, x1, blk1, rung, stream)
+    parts = fx.to_bits_partials(lib, tiles, x2, pk, rung, stream)
     npix, n_parts = b * l * l, parts[0].shape[0]
+    # bytes of an activation of c channels a pixel, and of a pack leaf
+    act = (lambda c: c + 4) if r8 else (lambda c: 4 * c)
+    nbytes = (lambda t: t.numel() * t.element_size())
 
-    def conv_work(x, blk):
-        cin, cout = x.shape[3], blk["w"].shape[-1]
-        return (4 * (x.numel() + blk["w"].numel() + cout + npix * cout),
+    def conv_work(cin, blk):
+        cout = blk["w"].shape[-1]
+        n_in = npix * (4 * cin if cin == 3 else act(cin))
+        return (n_in + nbytes(blk["w"]) + 4 * cout * (1 + r8) +
+                npix * act(cout),
                 npix * (2 * 9 * cin * cout + 8 * cout))
 
     tb = pk["to_bits"]
+    peak = RUNG_PEAK_S[dtype]
     rows = [
-        ("conv layer 0 (3 -> 64)", fx.conv_kernel_name(0, 3, C),
-         lambda: fx.conv_block(lib, tiles, blk0, 0, stream),
-         *conv_work(tiles, blk0)),
-        (f"conv hidden ({C} -> {C})", fx.conv_kernel_name(0, C, C),
-         lambda: fx.conv_block(lib, x1, blk1, 0, stream),
-         *conv_work(x1, blk1)),
-        ("to_bits + GAP + corr", fx.to_bits_kernel_name(0, C, nb),
-         lambda: fx.to_bits_partials(lib, tiles, x2, pk, 0, stream),
-         4 * (x2.numel() + tiles.numel() + tb["w"].numel() + nb +
-              pk["corr"].numel() + 2 * n_parts * nb),
+        ("conv layer 0 (3 -> 64)", fx.conv_kernel_name(rung, 3, C),
+         lambda: fx.conv_block(lib, tiles, blk0, rung, stream),
+         *conv_work(3, blk0)),
+        (f"conv hidden ({C} -> {C})", fx.conv_kernel_name(rung, C, C),
+         lambda: fx.conv_block(lib, x1, blk1, rung, stream),
+         *conv_work(C, blk1)),
+        ("to_bits + GAP + corr", fx.to_bits_kernel_name(rung, C, nb),
+         lambda: fx.to_bits_partials(lib, tiles, x2, pk, rung, stream),
+         npix * act(C) + 4 * tiles.numel() + nbytes(tb["w"]) +
+         4 * nb * (1 + r8) +
+         nbytes(pk["corr"]) + 4 * 2 * n_parts * nb,
          npix * (2 * 9 * C * nb + 2 * nb) + npix * 3 * (11 + 2 * nb)),
-        ("head", fx.head_kernel_name(0, nb),
-         lambda: fx.head_logits(lib, *parts, pk, 0, l, False, stream),
+        ("head", fx.head_kernel_name(rung, nb),
+         lambda: fx.head_logits(lib, *parts, pk, rung, l, False, stream),
          4 * (2 * n_parts * nb + pk["head"]["w"].numel() + 2 * nb + b * nb),
          b * (2 * nb * nb + 2 * (n_parts // b) * nb + 3 * nb)),
     ]
     out = []
     for name, kernel, fn, n_bytes, n_ops in rows:
-        bound_ms, by = bound(n_bytes, n_ops, PEAK_FP32_S)
-        r = _regs_of(regs, kernel)
+        # the head's products and sums are fp32 at every rung
+        bound_ms, by = bound(n_bytes, n_ops,
+                             PEAK_FP32_S if name == "head" else peak)
+        r = _build.registers_of(regs, kernel)
+        check(r is not None and r[1] == r[2] == 0,
+              f"{kernel}: ptxas -v shows spills, or no line for it: {r}")
         out.append(dict(name=name, kernel=kernel, ms=call_ms(fn, reps=10),
-                        bound_ms=bound_ms, bound_by=by,
-                        registers=None if r is None else r[0],
-                        spill_bytes=None if r is None else r[1] + r[2]))
-    # the yardstick: the same 64 -> 64 conv through cuDNN, fp32 throughout
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        xin = x1.permute(0, 3, 1, 2)  # NCHW view of NHWC = channels_last
-        wt = blk1["w"].view(3, 3, C, C).permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        y = F.conv2d(xin, wt, padding=1).permute(0, 2, 3, 1)
-        mu = (y + blk1["b"]).mean(-1, keepdim=True)
-        ref = torch.relu((y + blk1["b"] - mu) * torch.rsqrt(
-            ((y + blk1["b"] - mu) ** 2).mean(-1, keepdim=True) + 1e-5))
-        dev_err = float((ref - x2).abs().max())
-        check(dev_err <= 1e-3, f"cuDNN yardstick: its conv + norm differs "
-              f"from the kernel's block by {dev_err}")
-        cudnn_ms = call_ms(lambda: F.conv2d(xin, wt, padding=1), reps=10)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    print(f"flat fp32 decode kernels alone, b=32, full width, on {card} "
+                        bound_ms=bound_ms, bound_by=by, registers=r[0],
+                        spill_bytes=r[1] + r[2]))
+    if r8:
+        yard_name = "torch._int_mm, int8 x int8 -> int32, on the im2col"
+        # the layer's input as int8 (b*l*l, 576) taps x channels, zero-padded
+        q = x1.q.view(torch.int8).view(b, l, l, C)
+        qp = F.pad(q.view(torch.uint8), (0, 0, 1, 1, 1, 1)).view(torch.int8)
+        cols = torch.cat([qp[:, dy:dy + l, dx:dx + l]
+                          for dy in range(3) for dx in range(3)],
+                         dim=-1).reshape(npix, 9 * C).contiguous()
+        wq = blk1["w"].contiguous()
+        try:
+            yard_ms = call_ms(lambda: torch._int_mm(cols, wq), reps=10)
+            yard_note = "the exact int32 dot alone"
+        except RuntimeError as e:  # an optional yardstick, never the port
+            yard_ms, yard_note = None, f"not measured: {e}"
+    else:
+        yard_name = "cuDNN conv2d fp32 (TF32 off, channels_last)"
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            xin = x1.permute(0, 3, 1, 2)  # NCHW view of NHWC = channels_last
+            wt = blk1["w"].view(3, 3, C, C).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            y = F.conv2d(xin, wt, padding=1).permute(0, 2, 3, 1)
+            mu = (y + blk1["b"]).mean(-1, keepdim=True)
+            ref = torch.relu((y + blk1["b"] - mu) * torch.rsqrt(
+                ((y + blk1["b"] - mu) ** 2).mean(-1, keepdim=True) + 1e-5))
+            dev_err = float((ref - x2).abs().max())
+            check(dev_err <= 1e-3, f"cuDNN yardstick: its conv + norm "
+                  f"differs from the kernel's block by {dev_err}")
+            yard_ms = call_ms(lambda: F.conv2d(xin, wt, padding=1), reps=10)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        yard_note = (f"the conv alone; + bias/norm/ReLU in torch within "
+                     f"{dev_err:.3g} of the kernel")
+    print(f"flat {dtype} decode kernels alone, b=32, full width, on {card} "
           f"(ms per launch, median of 20 samples of 10 launches):")
     for r in out:
-        print(f"  {r['name']}: {r['ms']:.4f} ms, "
+        print(f"  {r['kernel']} ({r['name']}): {r['ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4g} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.1%} of it; registers "
               f"{r['registers']}, spill bytes {r['spill_bytes']}")
-    print(f"  yardstick, never called by the port: cuDNN conv2d fp32 (TF32 "
-          f"off, channels_last) {C} -> {C}, conv alone: {cudnn_ms:.4f} ms "
-          f"(+ bias/norm/ReLU in torch within {dev_err:.3g} of the kernel)")
-    return out, cudnn_ms
+    print(f"  yardstick, never called by the port: {yard_name} {C} -> {C}: "
+          f"{yard_ms} ms ({yard_note})")
+    return out, yard_ms
 
 
-def check_part_launches(parts, kernel_counts, traced, n_batches: int):
+def imma_sass(card: str) -> dict:
+    """The int8 flat kernels' tensor-core instructions in the built
+    library's SASS (``cuobjdump -sass``): {kernel: IMMA count}; fails
+    unless each ``conv_imma_kernel`` and ``gap_corr_imma_kernel`` issues
+    IMMA."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", _build.build_info["path"]],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "imma_kernel" in m.group(1) else None
+            if name:
+                counts[name] = 0
+        elif name and re.search(r"\bIMMA\.", line):
+            counts[name] += 1
+    check(len(counts) >= 2 and all(counts.values()),
+          f"the int8 flat kernels issue no IMMA in their SASS: {counts}")
+    out = dict(zip(_build.demangle(list(counts)), counts.values()))
+    print(f"int8 flat kernels' SASS ({tool.name} -sass): IMMA instructions "
+          + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
+    return out
+
+
+def check_part_launches(parts, kernel_counts, traced, n_batches: int,
+                        path: str = "default path"):
     """Set each flat-decode kernel's ``launches`` to its count in the
-    main path's run (``ops.kernel_launch_counts``, zeroed just before
-    it), and fail unless each ran: layer 0, to_bits and the head once a
-    batch, the hidden conv depth - 1 times, and no other decode kernel.
-    Where the profiled pass over the same batches saw device time, its
-    trace must show each kernel launched as often (``traced``: the
-    profiler's kernel names, spaces removed, and their counts)."""
+    path's run (``ops.kernel_launch_counts``, zeroed just before it), and
+    fail unless each ran: layer 0, to_bits and the head once a batch,
+    the hidden conv depth - 1 times, and no other decode kernel (at int8:
+    no quantize pass).  Where the profiled pass over the same batches
+    saw device time, its trace must show each kernel launched as often
+    and no ``quantize_rows_kernel`` (``traced``: the profiler's kernel
+    names, spaces removed, and their counts)."""
     want = {parts[0]["kernel"]: n_batches,
             parts[1]["kernel"]: (WIDTH["depth"] - 1) * n_batches,
             parts[2]["kernel"]: n_batches, parts[3]["kernel"]: n_batches}
     check(kernel_counts == want,
-          f"the default path's decode kernels launched {kernel_counts}, "
+          f"the {path}'s decode kernels launched {kernel_counts}, "
           f"expected {want}")
+    if traced:
+        quant = sum(n for k, (n, _) in traced.items() if "quantize_rows" in k)
+        check(quant == 0, f"the {path}'s trace shows {quant} quantize "
+              f"passes")
     for p in parts:
         p["launches"] = kernel_counts[p["kernel"]]
         if traced:
-            seen = sum(n for k, n in traced.items()
+            seen = sum(n for k, (n, _) in traced.items()
                        if f"::{p['kernel']}(" in k)
             check(seen == p["launches"],
                   f"{p['kernel']}: the profiled pass traced {seen} "
                   f"launches, the counter {p['launches']}")
-    print(f"default path, {n_batches} batches: decode kernel launches "
+    print(f"{path}, {n_batches} batches: decode kernel launches "
           f"{json.dumps({p['kernel']: p['launches'] for p in parts})}"
           + ("; the profiled pass traced the same" if traced else
              "; trace counts not measured"))
@@ -765,6 +797,34 @@ def rs_words(rng, n_codewords: int, n_each: int) -> np.ndarray:
     return words[rng.permutation(len(words))]
 
 
+def rs_out_of_domain_words(rng) -> np.ndarray:
+    """(128, 60) int32 words with entries outside {0, 1}: codewords and
+    single-error words with one to four entries of 2, -1, 3, -2 or 5
+    (every fourth left in {0, 1}), words over [-2, 3], and words with
+    entries at the int32 limits (-2^31 times a symbol weight wraps to 0
+    in the reference's int32 arithmetic), shuffled."""
+    from repro_torch.core.rs.codec import DEFAULT_CODE, rs_encode
+    gen = np.stack([rs_encode(DEFAULT_CODE, e) for e in np.eye(48, dtype=int)])
+    rows = []
+    for i, cw in enumerate(rng.integers(0, 2, (64, 48)) @ gen % 2):
+        w = cw.astype(np.int64)
+        if i % 2:
+            w = flip_symbol(w, int(rng.integers(15)), int(rng.integers(16)))
+        if i % 4 != 3:
+            for j in rng.choice(60, int(rng.integers(1, 5)), replace=False):
+                w[j] = rng.choice([2, -1, 3, -2, 5])
+        rows.append(w)
+    rows += list(rng.integers(-2, 4, (32, 60)))
+    big = [2 ** 30, 2 ** 29, -2 ** 31, 2 ** 31 - 1, -2 ** 30 - 7]
+    for i in range(32):
+        w = rng.integers(0, 2, 60) if i % 2 else np.zeros(60, np.int64)
+        w[(7 * i) % 60] = -2 ** 31
+        w[(11 * i + 3) % 60] = big[i % 5]
+        rows.append(w)
+    words = np.stack(rows).astype(np.int32)
+    return words[rng.permutation(len(words))]
+
+
 def rs_int_ops(n_words: int) -> float:
     """int32 ops of the least work a t=1 decode of one word needs, times
     the words: unpack 60 bits (2 ops each), two syndromes over 15
@@ -792,7 +852,7 @@ def phase_rs(dev, rng, card: str, regs: dict):
     spills (none allowed); ms per launch at B = 65536 (10 back to back)
     beside its bound."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels import rs_decode as rs
     full = rs_words(rng, 16, 512)
     cases = [full[:32], full[32:33], full[33:38], full,
@@ -809,6 +869,25 @@ def phase_rs(dev, rng, card: str, regs: dict):
     check(got["ok"].dtype == torch.bool, "rs: ok is not torch.bool")
     outcomes = torch.unique(want["n_corrected"]).tolist()
     check(outcomes == [-1, 0, 1], f"rs: outcomes {outcomes}")
+    # entries outside {0, 1} (the reference's algorithm in the kernel),
+    # alone and among {0, 1} words, and int64 / bool bits (cast to int32
+    # as the reference casts them)
+    odd = rs_out_of_domain_words(rng)
+    mixed = np.concatenate([odd, full])
+    mixed = mixed[rng.permutation(len(mixed))]
+    w64 = odd.astype(np.int64)
+    odd_cases = {"int32": odd, "mixed": mixed,
+                 "int64": w64 + (1 << 32) * np.sign(w64), "bool": odd != 0}
+    for what, words in odd_cases.items():
+        bits = torch.as_tensor(words).to(dev)
+        got = rs.rs_decode_cuda(bits)
+        want = rs.rs_decode_plain(bits)
+        torch.cuda.synchronize()
+        for k in want:
+            check(got[k].dtype == want[k].dtype and
+                  torch.equal(got[k], want[k]),
+                  f"rs {what} words outside {{0, 1}} (B={len(words)}): {k} "
+                  f"differs from the plain version")
     big_ms = call_ms(lambda: rs.rs_decode_cuda(bits), reps=10)
     big_bound, _ = rs_bound(len(bits))
     bits = torch.as_tensor(cases[0]).to(dev)
@@ -819,18 +898,22 @@ def phase_rs(dev, rng, card: str, regs: dict):
     times = timings(lambda: rs.rs_decode_cuda(bits),
                     lambda: rs.rs_decode_plain(bits), plain_iters=5)
     bound_ms, by = rs_bound(len(bits))
-    r = _regs_of(regs, RS_KERNEL)
+    r = _build.registers_of(regs, RS_KERNEL)
     check(r is not None and r[1] == r[2] == r[3] == 0,
           f"rs: ptxas -v shows a stack frame or spills: {r}")
     print(f"rs_decode ({RS_KERNEL}) on {card}: equal to the plain version "
-          f"on {', '.join(str(len(c)) for c in cases)} words; B=32: "
+          f"on {', '.join(str(len(c)) for c in cases)} words and on "
+          f"{len(odd)} words with entries outside {{0, 1}} (int32, int64, "
+          f"bool bits; and {len(mixed)} mixed with {{0, 1}} words); B=32: "
           f"{times['ms']:.4f} ms a call, bound {bound_ms:.3g} ms ({by}), plain "
-          f"{times['plain_ms']:.4f} ms; registers {r[0]}, stack {r[3]} B, "
-          f"spill stores {r[1]} B, spill loads {r[2]} B; B={len(cases[-1])}: "
+          f"{times['plain_ms']:.4f} ms; registers {r[0]}, stack {r[3]} B "
+          f"(cumulative, with the out-of-{{0, 1}} path: {r[4]} B), spill "
+          f"stores {r[1]} B, spill loads {r[2]} B; B={len(cases[-1])}: "
           f"{big_ms:.4f} ms a launch, bound {big_bound:.3g} ms")
     return dict(max_abs_err=0.0, bound_ms=bound_ms, bound_by=by,
                 library_ms=None, kernel=RS_KERNEL, registers=r[0],
-                stack_bytes=r[3], spill_bytes=r[1] + r[2],
+                stack_bytes=r[3], cumulative_stack_bytes=r[4],
+                spill_bytes=r[1] + r[2],
                 large_b=dict(b=len(cases[-1]), ms=big_ms,
                              bound_ms=big_bound), **times)
 
@@ -841,8 +924,9 @@ def rs_device_ms(dev, rng, card: str, calls: int = 20):
     after it); returns its device ms per launch, or None where the
     profiler saw no device time.  Run after the main path's profiled
     pass, whose launch counts are checked: a later profiler session in
-    the process can miss its first few device events, so the launches
-    are read and reported here, not required to equal ``calls``."""
+    the process can miss its first few device events (a primer of torch's
+    spin kernel comes first, left out), so the launches are read and
+    reported here, not required to equal ``calls``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -852,12 +936,16 @@ def rs_device_ms(dev, rng, card: str, calls: int = 20):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(calls):
             rs.rs_decode_cuda(bits)
         torch.cuda.synchronize()
     traced = {e.key: (e.count, e.self_device_time_total / 1e3 / e.count)
               for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.count}
+              if e.device_type == DeviceType.CUDA and e.count and
+              "spin_kernel" not in e.key}
     if not sum(ms for _, ms in traced.values()):
         print("rs_decode: the profiler saw no device time (not measured)")
         return None
@@ -948,21 +1036,27 @@ def profile_path(pipe, batches, card: str, name: str = "serve"):
     """One more pass over the batches under ``torch.profiler``: device
     busy time by kernel against the wall time (the profiler's own host
     cost inflates the wall, so the idle share is an upper bound).  The
-    trace goes to build/chip_smoke/<name>_trace.json.  Returns the
-    launches per device kernel name (spaces removed), or None where the
-    profiler saw no device time."""
+    trace goes to build/chip_smoke/<name>_trace.json.  Returns (launches,
+    device ms in all) per device kernel name (spaces removed), or None
+    where the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a later session in the process can miss its first few device
+        # events: let them be a primer's (torch's spin kernel, a few
+        # microseconds each), left out of the rows below
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for raw in batches:
             pipe.detect_batch(raw)
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     prof.export_chrome_trace(str(OUT / f"{name}_trace.json"))
     if busy_ms == 0:
@@ -976,15 +1070,18 @@ def profile_path(pipe, batches, card: str, name: str = "serve"):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
-    return {e.key.replace(" ", ""): e.count for e in rows}
+    return {e.key.replace(" ", ""): (e.count, e.self_device_time_total / 1e3)
+            for e in rows}
 
 
 # -- phase 5: the other configurations through the serve launcher ---------
 def serve_config(flags, batches, card: str, profile: str = ""):
     """Build the launcher's pipeline for ``flags`` at full width, warm it
     up, zero the counters, serve ``batches``; return (report, results,
-    launch counts).  With ``profile``, one more pass runs under the
-    profiler (device time by kernel) after the counted one."""
+    launch counts, launches per decode kernel, the profiled pass's
+    launches per device kernel or None).  With ``profile``, one more pass
+    runs under the profiler (device time by kernel) after the counted
+    one."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_lib
@@ -999,23 +1096,27 @@ def serve_config(flags, batches, card: str, profile: str = ""):
         ops.reset_launch_counts()
         rep, results = serve_lib.serve(pipe, batches)
         counts = ops.launch_counts()
-        if profile:
-            profile_path(pipe, batches, card, profile)
+        kernel_counts = ops.kernel_launch_counts()
+        traced = profile_path(pipe, batches, card, profile) if profile \
+            else None
     finally:
         pipe.close()
     print(f"serve {' '.join(flags)}: {rep.images} images in "
           f"{rep.wall_s:.4f} s = {rep.throughput_ips:.1f} images/s on "
           f"{card}; launches {json.dumps(counts)}")
-    return rep, results, counts
+    return rep, results, counts, kernel_counts, traced
 
 
 def phase_configs(batches, default_results, default_ips, cache, winner,
-                  winner8, card: str):
+                  winner8, card: str, parts8):
     """Each configuration of the second slice on the default path's 3
     batches of 32: launch counts per batch, and its results against the
     default path's (the same keys: batch k of each stream).
     ``default_ips`` is the default path's median window (images/s), the
-    qrmark side of the ratios to the sequential baseline."""
+    qrmark side of the ratios to the sequential baseline.  The int8
+    configuration's run sets ``parts8``' launches
+    (:func:`check_part_launches`: its decode kernels, matched to its
+    profiled pass, and no quantize pass)."""
     n = len(batches)
     zero = dict(fused_tile_preprocess=0, fused_preprocess=0,
                 fused_extractor=0, fused_extractor_blocked=0, rs_decode=0)
@@ -1056,11 +1157,14 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
     ]
     out = {}
     for name, flags, want, relation in configs:
-        rep, results, counts = serve_config(
+        rep, results, counts, kernel_counts, traced = serve_config(
             flags, batches, card,
             profile=name if name in ("staged", "blocked",
                                      "sequential-device", "bf16", "int8",
                                      "int8-auto") else "")
+        if name == "int8":
+            check_part_launches(parts8, kernel_counts, traced, n,
+                                path="--decode-dtype int8 path")
         check(counts == {**zero, **want},
               f"{name}: launches {counts}, expected {({**zero, **want})}")
         check(rep.images == 32 * n, f"{name}: served {rep.images} images")
@@ -1209,7 +1313,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    regs = kernel_registers(log)
+    regs = _build.kernel_registers(log)
     phases = {"fused_tile_preprocess": phase_ingest(dev, rng),
               "fused_extractor": phase_extractor(dev, rng),
               "rs_decode": phase_rs(dev, rng, card, regs),
@@ -1220,6 +1324,9 @@ def main() -> int:
     parts, cudnn_ms = phase_decode_parts(dev, rng, card, regs)
     phases["fused_extractor"].update(parts=parts,
                                      cudnn_conv_yardstick_ms=cudnn_ms)
+    parts8, int_mm_ms = phase_decode_parts(dev, rng, card, regs, "int8")
+    rungs["int8"]["fused_extractor"].update(
+        parts=parts8, int_mm_yardstick_ms=int_mm_ms, imma_sass=imma_sass(card))
     for name, r in phases.items():
         print(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.3g} ms ({r['bound_by']}), max |err| "
@@ -1228,9 +1335,17 @@ def main() -> int:
     window_ips = phase_throughput(pipe, batches, card)
     traced = profile_path(pipe, batches, card)
     check_part_launches(parts, kernel_counts, traced, len(batches))
+    # the ingest's and RS's device ms a launch in that pass
+    for name, kernel in (("fused_tile_preprocess", "tile_preprocess_kernel"),
+                         ("rs_decode", RS_KERNEL)):
+        hits = [v for k, v in (traced or {}).items() if f"::{kernel}(" in k]
+        phases[name]["serve_device_ms"] = (hits[0][1] / hits[0][0]
+                                           if hits else None)
+        print(f"{name}: {phases[name]['serve_device_ms']} ms of device time "
+              f"a launch in the default path's profiled pass, on {card}")
     configs = phase_configs(batches, results,
                             statistics.median(window_ips), cache, winner,
-                            winner8, card)
+                            winner8, card, parts8)
     phase_golden()
     phases["rs_decode"]["device_ms"] = rs_device_ms(dev, rng, card)
 
@@ -1282,13 +1397,22 @@ def main() -> int:
                 phases[name]["cudnn_conv_yardstick_ms"]
         if name == "rs_decode":
             entry.update({k: phases[name][k] for k in (
-                "kernel", "device_ms", "registers", "stack_bytes",
-                "spill_bytes", "large_b")})
+                "kernel", "device_ms", "serve_device_ms", "registers",
+                "stack_bytes", "cumulative_stack_bytes", "spill_bytes",
+                "large_b")})
+        if name == "fused_tile_preprocess":
+            entry["serve_device_ms"] = phases[name]["serve_device_ms"]
         if name in rung_launches:
             entry["rungs"] = ["fp32", *RUNGS]
             entry["by_rung"] = {dt: {"launches": rung_launches[name][dt],
                                      **{k: rungs[dt][name][k] for k in keys}}
                                 for dt in RUNGS}
+            if name == "fused_extractor":
+                # each CUDA kernel of the flat int8 decode, with its
+                # launches in the --decode-dtype int8 serve run
+                entry["by_rung"]["int8"].update(
+                    {k: rungs["int8"][name][k] for k in (
+                        "parts", "int_mm_yardstick_ms", "imma_sass")})
         kernels.append(entry)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phases": phases,

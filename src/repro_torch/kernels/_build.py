@@ -18,13 +18,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
@@ -39,13 +40,15 @@ _L = ctypes.c_longlong
 # c_void_p, or ctypes would pass them as 32-bit ints); each returns the
 # cudaGetLastError() of its launch.
 SIGNATURES: Dict[str, List] = {
-    "qr_tile_preprocess": [_P] * 9 + [_I] * 6 + [_P],
+    "qr_tile_preprocess": [_P] * 4 + [_I] * 6 + [_P],
     "qr_preprocess": [_P] * 8 + [_I] * 4 + [_P],
     "qr_conv3x3_norm_relu": [_P] * 6 + [_I] * 5 + [_P],
     "qr_conv3x3_norm_relu_blocked": [_P] * 6 + [_I] * 8 + [_P],
     "qr_conv3x3_gap_corr": [_P] * 9 + [_I] * 6 + [_P],
     "qr_extractor_head": [_P] * 7 + [_I] * 5 + [_P],
     "qr_quantize_rows_int8": [_P] * 3 + [_L, _I, _P],
+    "qr_conv3x3_imma": [_P] * 7 + [_I] * 4 + [_P],
+    "qr_conv3x3_gap_corr_imma": [_P] * 9 + [_I] * 5 + [_P],
     "qr_rs_decode": [_P] * 5 + [_I] + [_P],
 }
 
@@ -131,18 +134,114 @@ def build() -> Path:
     return lib_path
 
 
+def load(path, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """A built kernel library with the C entry points ``names`` bound."""
+    lib = ctypes.CDLL(str(path))
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
         return _lib
+
+
+def build_variants(dirs: Dict[str, Path]) -> Dict[str, Tuple[Path, str]]:
+    """Build each directory's ``*.cu`` sources (with the headers beside
+    them) into a library of its own, ``<dir>/libvariant.so``: every
+    source of every directory in one parallel round of ``nvcc``.  For
+    measuring variants of the sources; returns {name: (library path,
+    ``ptxas -v`` log)}."""
+    compiler = nvcc()
+    jobs = [(name, src) for name, d in dirs.items()
+            for src in sorted(Path(d).glob("*.cu"))]
+    logs = _run_parallel([[compiler, *NVCC_FLAGS, "-c", str(src), "-o",
+                           str(src.with_suffix(".o"))] for _, src in jobs])
+    out = {}
+    for name, d in dirs.items():
+        objs = [str(src.with_suffix(".o")) for n, src in jobs if n == name]
+        lib = Path(d) / "libvariant.so"
+        _run_parallel([[compiler, "-shared", "-o", str(lib), *objs]])
+        out[name] = (lib, "".join(log for (n, _), log in zip(jobs, logs)
+                                  if n == name))
+    return out
+
+
+def demangle(names: List[str]) -> List[str]:
+    """Kernel names as ``c++filt`` prints them, without the ``void``
+    before them and the argument list after (as given where ``c++filt``
+    is not there)."""
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [_without_args(n).removeprefix("void ") for n in names]
+
+
+def _without_args(name: str) -> str:
+    """A demangled name without its trailing argument list (the name
+    itself may hold parentheses: ``(anonymous namespace)::f``)."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += (name[i] == ")") - (name[i] == "(")
+        if depth == 0:
+            return name[:i] if name.endswith(")") else name
+    return name
+
+
+def kernel_registers(log: str) -> Dict[str, Tuple[int, ...]]:
+    """``ptxas -v`` per kernel: {name: (registers, spill stores, spill
+    loads, stack frame bytes, cumulative stack bytes)}, names as
+    :func:`demangle` gives them.  A kernel's frame and spills are its own
+    ("Function properties for" it); the cumulative stack adds the frames
+    of the functions it calls."""
+    rows, frames, name, props = [], {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props:
+            frames[props] = (int(m.group(2)), int(m.group(3)),
+                             int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            cum = re.search(r"(\d+) bytes cumulative stack size", line)
+            rows.append((name, int(m.group(1))) +
+                        frames.get(name, (0, 0, 0)) +
+                        (int(cum.group(1)) if cum else 0,))
+            name = None
+    return {n: r[1:] for n, r in zip(demangle([r[0] for r in rows]), rows)}
+
+
+def registers_of(regs: Dict[str, Tuple[int, ...]], kernel: str):
+    """The :func:`kernel_registers` row of the one kernel whose name,
+    without spaces, holds ``kernel`` (``None`` unless exactly one)."""
+    hits = [v for k, v in regs.items() if kernel in k.replace(" ", "")]
+    return hits[0] if len(hits) == 1 else None
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on the CUDA ``device``
+    (what ``torch.cuda.current_stream(device).cuda_stream`` gives, read
+    without making a Stream object)."""
+    import torch
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(name: str, err: int):

@@ -43,21 +43,23 @@
 // costs ~2.1 GFLOP.  A 64->64 hidden block at b=32 is 9.73 GFLOP, 0.145 ms
 // at the 67 TFLOP/s FFMA peak; to_bits + GAP + corr 9.08 GFLOP, 0.136 ms.
 // Layer 0 (cin = 3) is bound by bytes: 35 MB (its 64-channel output) at
-// 3.35 TB/s, 0.0105 ms.  The fp32 rung runs on FFMA; the lower rungs'
-// bounds are the tensor cores' (989 bf16, 1979 int8), which these kernels
-// do not use yet: bf16 runs the fp32 FFMA chain on rounded operands, int8
-// runs __dp4a (4 multiply-adds per instruction).
+// 3.35 TB/s, 0.0105 ms.  The fp32 rung runs on FFMA, bf16 runs the fp32
+// FFMA chain on rounded operands (its tensor-core bound, 989 TFLOP/s, is
+// not used yet); the int8 flat rung takes its tap dots on the int8 tensor
+// cores (1979 TOP/s), see fused_extractor_int8.cu.
 //
-// Activations go through global memory between layers, in fp32 at every
-// rung: one image's activation is 1 MiB at l=64, C=64, more than an SM's
-// 227 KB of shared memory, so the TPU's whole-forward-per-step fusion does
-// not carry over.  One direct-conv kernel per layer, then to_bits (which
-// also reduces its tile's GAP and correlation partials) and a small head
-// kernel that sums the partials per image in tile order.
+// Activations go through global memory between layers: fp32 at the fp32
+// and bf16 rungs and on the blocked schedule; int8 words and one fp32
+// scale a pixel on the int8 flat schedule.  One image's fp32 activation
+// is 1 MiB at l=64, C=64, more than an SM's 227 KB of shared memory, so
+// the TPU's whole-forward-per-step fusion does not carry over.  One
+// direct-conv kernel per layer, then to_bits (which also reduces its
+// tile's GAP and correlation partials) and a small head kernel that sums
+// the partials per image in tile order.
 //
 // Flat schedule, fp32 and bf16 (`conv_regtile_kernel`,
 // `gap_corr_regtile_kernel`): a register-tiled direct conv.  What held the
-// one-thread-per-pixel design below at 20 % of the FFMA peak was shared
+// first, one-thread-per-pixel design at 20 % of the FFMA peak was shared
 // memory issue (each input channel cost one LDS.32 of the activation and
 // C/4 LDS.128 weight broadcasts for C FFMA: 17 loads per 64 FFMA at
 // C=64), a barrier pair around every tap's weights with nothing in flight
@@ -92,20 +94,18 @@
 // per SM.  Layer 0 (cin = 3) runs the same engine; its work is small and
 // its output bytes bound it.
 //
-// int8 flat (`conv_norm_relu_kernel<RI8>`, `conv_gap_corr_kernel<RI8>`):
-// the first design of the flat kernels, kept at this rung until its
-// tensor-core redesign.  A block owns an 8x16 pixel tile and all output
-// channels, one thread per pixel, so channel_norm's reduction stays in the
-// thread's registers; it stages one tap's weights at a time.  A small pass
-// (`quantize_rows_kernel`) quantizes each layer's input once per pixel:
-// int8 values, four input channels to a 32-bit word (layer 0 pads 3 -> 4
-// with a zero), and one fp32 scale s = max(amax, 1e-8) * float(1/127) per
-// pixel, q = rint(x / s) clipped to +-127 (the jitted reference multiplies
-// by the reciprocal for the scale and divides for q).  The conv stages the
-// weights re-laid into the same four-channel words (synchronously:
-// cp.async cannot re-lay bytes) and the per-column scales, and takes each
-// tap's dot with __dp4a.  A padding pixel has q = 0, so its tap adds
-// (0 * s) * w_scale = 0.
+// int8 flat: the tensor-core kernels of fused_extractor_int8.cu
+// (`conv_imma_kernel`, `gap_corr_imma_kernel`), which quantize each
+// layer's output in their epilogue.  The int8 blocked schedule keeps the
+// first design: a small pass (`quantize_rows_kernel`) quantizes each
+// layer's fp32 input once per pixel (int8 values, four input channels to
+// a 32-bit word, layer 0 padding 3 -> 4 with a zero, and one fp32 scale
+// s = max(amax, 1e-8) * float(1/127) per pixel, q = rint(x / s) clipped
+// to +-127: the jitted reference multiplies by the reciprocal for the
+// scale and divides for q), and its to_bits is `conv_gap_corr_kernel<RI8>`
+// (one thread per pixel of an 8x16 tile, weights re-laid into the same
+// four-channel words one tap at a time, __dp4a).  A padding pixel has
+// q = 0, so its tap adds (0 * s) * w_scale = 0.
 //
 // Blocked schedule, `conv_blocked_kernel`: the same forward re-blocked by
 // a schedule (batch block bb, output-channel tile ct, double_buffer) whose
@@ -131,7 +131,8 @@
 // same `norm_relu`.  The int8 rung keeps it at every channel tile too (the
 // reference is only ulp-close there): its dot is exact and its dequantize
 // is per column.  The to_bits conv, GAP, correlation and head run the flat
-// kernels (n_bits is always one full-width tile, as in the reference).
+// schedule's kernels (n_bits is always one full-width tile, as in the
+// reference), at int8 `conv_gap_corr_kernel<RI8>` after the quantize pass.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -204,8 +205,8 @@ __host__ __device__ __forceinline__ int halo_words(int cin) {
   return (cin + R::KPACK - 1) / R::KPACK;
 }
 
-// int8 flat kernels: an 8x16 tile, one thread per pixel.  TH x TW is also
-// the tile of the GAP and correlation partials at every rung.
+// int8 blocked to_bits: an 8x16 tile, one thread per pixel.  TH x TW is
+// also the tile of the GAP and correlation partials at every rung.
 constexpr int TH = 8, TW = 16, NPIX = TH * TW;
 constexpr int HWD = TW + 2, NHALO = (TH + 2) * HWD;
 constexpr int BTH = 16, BTW = 16, BNPIX = BTH * BTW;  // blocked
@@ -341,7 +342,7 @@ __device__ __forceinline__ void tap_fold(const typename R::X* sp, int nh,
   }
 }
 
-// Shared memory of the int8 flat kernels' conv: one tap's weights (cw, N), the
+// Shared memory of conv_gap_corr_kernel: one tap's weights (cw, N), the
 // halo (NHALO, cw) and, for int8, the halo's scales and the N column
 // scales.  Offsets in bytes; every region starts 16-byte aligned.
 template <class R>
@@ -357,7 +358,7 @@ struct FlatSmem {
   }
 };
 
-// The nine taps of an int8 flat kernel's pixel: per tap, stage its
+// The nine taps of conv_gap_corr_kernel's pixel: per tap, stage its
 // weights, then tap_fold.
 template <class R, int N>
 __device__ __forceinline__ void conv_taps(const typename R::W* __restrict__ w,
@@ -425,36 +426,13 @@ __device__ __forceinline__ void norm_relu(Pre pre,
   norm_relu_to<COUT>(pre, bias, [o4](int q, float4 v) { o4[q] = v; });
 }
 
-// One hidden block, int8 flat: SAME 3x3 conv + bias + channel_norm + ReLU.
-template <class R, int COUT>
-__global__ void __launch_bounds__(NPIX)
-conv_norm_relu_kernel(const void* __restrict__ x,
-                      const float* __restrict__ xs,
-                      const typename R::W* __restrict__ w,
-                      const float* __restrict__ wscale,
-                      const float* __restrict__ bias,
-                      float* __restrict__ out, int l, int cin) {
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  const FlatSmem<R> sm(cin, COUT);
-  const int tiles_x = l / TW, tiles = (l / TH) * tiles_x;
-  const long long img = blockIdx.x / tiles;
-  const int t = blockIdx.x % tiles;
-  const int y0 = (t / tiles_x) * TH, x0 = (t % tiles_x) * TW;
-  const int py = threadIdx.x / TW, px = threadIdx.x % TW;
-  load_halo<R, TH, TW>(x, xs, reinterpret_cast<typename R::X*>(smem + sm.in),
-                       reinterpret_cast<float*>(smem + sm.sc), img, y0, x0,
-                       l, cin);
-  float acc[COUT];
-  conv_taps<R, COUT>(w, wscale, smem, sm, cin, py, px, acc);
-  norm_relu<COUT>([&](int co) { return acc[co]; }, bias,
-                  out + ((img * l + y0 + py) * l + x0 + px) * COUT);
-}
-
-// to_bits, int8 flat: conv + bias, reduced over the tile's pixels into a
-// GAP partial;
-// with the correlation bank, also the tile's highpass(tiles) . corr
-// partial.  Partials are (b * tiles, NB), tile-major within an image.
+// to_bits at int8 on the blocked schedule (the first design of the flat
+// kernels, kept there; the flat schedule's int8 to_bits is the tensor-core
+// `gap_corr_imma_kernel`, fused_extractor_int8.cu): conv + bias, reduced
+// over the 8x16 tile's pixels into a GAP partial; with the correlation
+// bank, also the tile's highpass(tiles) . corr partial.  Partials are
+// (b * tiles, NB), tile-major within an image.  One thread per pixel,
+// one tap's weights staged at a time, __dp4a.
 template <class R, int NB>
 __global__ void __launch_bounds__(NPIX)
 conv_gap_corr_kernel(const void* __restrict__ x, const float* __restrict__ xs,
@@ -944,6 +922,72 @@ conv_regtile_kernel(const float* __restrict__ x,
   }
 }
 
+// The to_bits epilogue of a 16x16 pixel tile, shared by the fp32 / bf16
+// and the int8 (fused_extractor_int8.cu) kernels.  rt_highpass: the
+// tile's highpass(tiles) = tiles - box3x3(tiles), the nine zero-padded
+// views folded left in [ky, kx] order, times float(1/9) (the reference
+// multiplies), then rounded to the correlation bank's precision, into
+// s_hp (RT^2, 3).
+template <class H>
+__device__ __forceinline__ void rt_highpass(const float* __restrict__ tiles_in,
+                                            float* s_hp, long long img,
+                                            int y0, int x0, int l) {
+  const float* ti = tiles_in + img * l * l * 3;
+  for (int p = threadIdx.x; p < RT * RT; p += blockDim.x) {
+    const int gy = y0 + p / RT, gx = x0 + p % RT;
+    for (int c = 0; c < 3; ++c) {
+      float box = 0.f;
+      for (int tap = 0; tap < 9; ++tap) {
+        const int sy = gy + tap / 3 - 1, sx = gx + tap % 3 - 1;
+        float v = 0.f;
+        if (sy >= 0 && sy < l && sx >= 0 && sx < l)
+          v = ti[((long long)sy * l + sx) * 3 + c];
+        box = tap == 0 ? v : __fadd_rn(box, v);
+      }
+      const float center = ti[((long long)gy * l + gx) * 3 + c];
+      s_hp[p * 3 + c] =
+          round_to<H>(__fsub_rn(center, __fmul_rn(box, 1.0f / 9.0f)));
+    }
+  }
+}
+
+// The GAP partials from the staged (y + bias) rows s_red (RT^2, 61) and,
+// with the correlation bank, the correlation partials from s_hp, of the
+// two TH x TW tiles of the block's tile (by, bx), each over its pixels in
+// row-major order.  Partials are (b * (l / TH) * (l / TW), 60),
+// tile-major within an image.
+template <class H>
+__device__ __forceinline__ void rt_gap_corr_partials(
+    const float* s_red, const float* s_hp, const H* __restrict__ corr,
+    float* __restrict__ part_gap, float* __restrict__ part_corr,
+    long long img, int by, int bx, int l, int has_corr) {
+  constexpr int NB = 60, SR = NB + 1;
+  const int y0 = by * RT, x0 = bx * RT;
+  // GAP tile s (0: rows y0..y0+7, 1: the next 8) is pixels
+  // [s * TH * TW, (s + 1) * TH * TW) of the block's tile, row-major
+  const long long parts_x = l / TW, first = img * (l / TH) * parts_x;
+  for (int i = threadIdx.x; i < 4 * NB; i += blockDim.x) {
+    const int s = (i / NB) % 2, n = i % NB;
+    const long long part = first + (2 * by + s) * parts_x + bx;
+    float sum = 0.f;
+    if (i < 2 * NB) {
+      for (int p = 0; p < TH * TW; ++p)
+        sum = __fadd_rn(sum, s_red[(s * TH * TW + p) * SR + n]);
+      part_gap[part * NB + n] = sum;
+    } else if (has_corr) {
+      for (int p = 0; p < TH * TW; ++p) {
+        const long long gp =
+            (long long)(y0 + s * TH + p / TW) * l + x0 + p % TW;
+        const H* cp = corr + (gp * NB + n) * 3;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          sum = fmaf(s_hp[(s * TH * TW + p) * 3 + c], to_f(cp[c]), sum);
+      }
+      part_corr[part * NB + n] = sum;
+    }
+  }
+}
+
 // to_bits, flat schedule, fp32 / bf16: the conv + bias at NB = 60 columns
 // (64 in the engine), reduced into the GAP partials, and with the
 // correlation bank the highpass(tiles) . corr partials, of the two TH x TW
@@ -982,52 +1026,10 @@ gap_corr_regtile_kernel(const float* __restrict__ x,
         s_red[rt_pixel<K::NCG>(m) * SR + col] =
             __fadd_rn(acc[m][n], bias[col]);
     }
-  if (has_corr) {
-    // highpass = tiles - box3x3(tiles): the nine zero-padded views folded
-    // left in [ky, kx] order, times float(1/9) (the reference multiplies),
-    // then rounded to the correlation bank's precision
-    const float* ti = tiles_in + img * l * l * 3;
-    for (int p = threadIdx.x; p < RT * RT; p += blockDim.x) {
-      const int gy = y0 + p / RT, gx = x0 + p % RT;
-      for (int c = 0; c < 3; ++c) {
-        float box = 0.f;
-        for (int tap = 0; tap < 9; ++tap) {
-          const int sy = gy + tap / 3 - 1, sx = gx + tap % 3 - 1;
-          float v = 0.f;
-          if (sy >= 0 && sy < l && sx >= 0 && sx < l)
-            v = ti[((long long)sy * l + sx) * 3 + c];
-          box = tap == 0 ? v : __fadd_rn(box, v);
-        }
-        const float center = ti[((long long)gy * l + gx) * 3 + c];
-        s_hp[p * 3 + c] = round_to<typename R::H>(
-            __fsub_rn(center, __fmul_rn(box, 1.0f / 9.0f)));
-      }
-    }
-  }
+  if (has_corr) rt_highpass<typename R::H>(tiles_in, s_hp, img, y0, x0, l);
   __syncthreads();
-  // GAP tile s (0: rows y0..y0+7, 1: the next 8) is pixels
-  // [s * TH * TW, (s + 1) * TH * TW) of the block's tile, row-major
-  const long long parts_x = l / TW, first = img * (l / TH) * parts_x;
-  for (int i = threadIdx.x; i < 4 * NB; i += blockDim.x) {
-    const int s = (i / NB) % 2, n = i % NB;
-    const long long part = first + (2 * by + s) * parts_x + bx;
-    float sum = 0.f;
-    if (i < 2 * NB) {
-      for (int p = 0; p < TH * TW; ++p)
-        sum = __fadd_rn(sum, s_red[(s * TH * TW + p) * SR + n]);
-      part_gap[part * NB + n] = sum;
-    } else if (has_corr) {
-      for (int p = 0; p < TH * TW; ++p) {
-        const long long gp =
-            (long long)(y0 + s * TH + p / TW) * l + x0 + p % TW;
-        const typename R::H* cp = corr + (gp * NB + n) * 3;
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          sum = fmaf(s_hp[(s * TH * TW + p) * 3 + c], to_f(cp[c]), sum);
-      }
-      part_corr[part * NB + n] = sum;
-    }
-  }
+  rt_gap_corr_partials<typename R::H>(s_red, s_hp, corr, part_gap, part_corr,
+                                      img, by, bx, l, has_corr);
 }
 
 // Per image: GAP = (sum of the tile partials) / l^2, head as
@@ -1078,22 +1080,13 @@ inline cudaError_t set_smem(K kernel, size_t bytes) {
 // The host side of one rung: every launcher takes the rung's pointers as
 // void* (x: fp32 activations, or int8 words with their scales xs) and
 // returns cudaGetLastError() of its launch, or cudaErrorInvalidValue for a
-// shape it is not built for (fp32 / bf16 flat: cin in {3, 16, 32, 64}).
+// shape it is not built for (fp32 / bf16 to_bits: cin in {3, 16, 32, 64}).
 // Members are defined out of the class, so they are not inline and
-// `extern template` keeps a rung's kernels in its own source.
+// `extern template` keeps a rung's kernels in its own source (so does
+// FlatConv's `any`).
 template <class R>
 struct Extractor {
   using W = typename R::W;
-  template <int COUT>
-  static int conv(const void* x, const float* xs, const void* w,
-                  const float* wscale, const float* bias, float* out, int b,
-                  int l, int cin, cudaStream_t stream);
-  static int conv_any(const void* x, const float* xs, const void* w,
-                      const float* wscale, const float* bias, float* out,
-                      int b, int l, int cin, int cout, cudaStream_t stream);
-  template <int COUT, int CIN>
-  static int conv_rt(const float* x, const void* w, const float* bias,
-                     float* out, int b, int l, cudaStream_t stream);
   template <int COUT, int CT>
   static int blocked(const void* x, const float* xs, const void* w,
                      const float* wscale, const float* bias, float* out,
@@ -1119,54 +1112,49 @@ struct Extractor {
                   int l, int n_bits, int has_corr, cudaStream_t stream);
 };
 
+// The flat conv of the fp32 and bf16 rungs (the register-tiled kernel);
+// the int8 flat conv is conv_imma_kernel, launched by qr_conv3x3_imma
+// (fused_extractor_int8.cu).
 template <class R>
-template <int COUT>
-int Extractor<R>::conv(const void* x, const float* xs, const void* w,
-                       const float* wscale, const float* bias, float* out,
-                       int b, int l, int cin, cudaStream_t stream) {
-  if constexpr (std::is_same<R, RI8>::value) {
-    const int blocks = b * (l / TH) * (l / TW);
-    const size_t smem = FlatSmem<R>(cin, COUT).end;
-    cudaError_t err = set_smem(conv_norm_relu_kernel<R, COUT>, smem);
+struct FlatConv {
+  static_assert(!std::is_same<R, RI8>::value,
+                "the int8 flat conv is conv_imma_kernel");
+  template <int COUT, int CIN>
+  static int rt(const float* x, const void* w, const float* bias, float* out,
+                int b, int l, cudaStream_t stream) {
+    using K = Rt<R, COUT, CIN>;
+    if (l % RT) return (int)cudaErrorInvalidValue;
+    cudaError_t err = set_smem(conv_regtile_kernel<R, COUT, CIN>, K::END);
     if (err != cudaSuccess) return (int)err;
-    conv_norm_relu_kernel<R, COUT><<<blocks, NPIX, smem, stream>>>(
-        x, xs, static_cast<const W*>(w), wscale, bias, out, l, cin);
+    conv_regtile_kernel<R, COUT, CIN>
+        <<<b * (l / RT) * (l / RT), K::THREADS, K::END, stream>>>(
+            x, static_cast<const typename R::W*>(w), bias, out, l);
     return (int)cudaGetLastError();
-  } else {
-    const float* xf = static_cast<const float*>(x);
+  }
+  template <int COUT>
+  static int cin_any(const float* x, const void* w, const float* bias,
+                     float* out, int b, int l, int cin, cudaStream_t stream) {
     switch (cin) {
-      case 3: return conv_rt<COUT, 3>(xf, w, bias, out, b, l, stream);
-      case 16: return conv_rt<COUT, 16>(xf, w, bias, out, b, l, stream);
-      case 32: return conv_rt<COUT, 32>(xf, w, bias, out, b, l, stream);
-      case 64: return conv_rt<COUT, 64>(xf, w, bias, out, b, l, stream);
+      case 3: return rt<COUT, 3>(x, w, bias, out, b, l, stream);
+      case 16: return rt<COUT, 16>(x, w, bias, out, b, l, stream);
+      case 32: return rt<COUT, 32>(x, w, bias, out, b, l, stream);
+      case 64: return rt<COUT, 64>(x, w, bias, out, b, l, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }
-}
+  static int any(const float* x, const void* w, const float* bias,
+                 float* out, int b, int l, int cin, int cout,
+                 cudaStream_t stream);
+};
 
 template <class R>
-template <int COUT, int CIN>
-int Extractor<R>::conv_rt(const float* x, const void* w, const float* bias,
-                          float* out, int b, int l, cudaStream_t stream) {
-  using K = Rt<R, COUT, CIN>;
-  if (l % RT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_smem(conv_regtile_kernel<R, COUT, CIN>, K::END);
-  if (err != cudaSuccess) return (int)err;
-  conv_regtile_kernel<R, COUT, CIN>
-      <<<b * (l / RT) * (l / RT), K::THREADS, K::END, stream>>>(
-          x, static_cast<const W*>(w), bias, out, l);
-  return (int)cudaGetLastError();
-}
-
-template <class R>
-int Extractor<R>::conv_any(const void* x, const float* xs, const void* w,
-                           const float* wscale, const float* bias, float* out,
-                           int b, int l, int cin, int cout,
-                           cudaStream_t stream) {
+int FlatConv<R>::any(const float* x, const void* w, const float* bias,
+                     float* out, int b, int l, int cin, int cout,
+                     cudaStream_t stream) {
   switch (cout) {
-    case 16: return conv<16>(x, xs, w, wscale, bias, out, b, l, cin, stream);
-    case 32: return conv<32>(x, xs, w, wscale, bias, out, b, l, cin, stream);
-    case 64: return conv<64>(x, xs, w, wscale, bias, out, b, l, cin, stream);
+    case 16: return cin_any<16>(x, w, bias, out, b, l, cin, stream);
+    case 32: return cin_any<32>(x, w, bias, out, b, l, cin, stream);
+    case 64: return cin_any<64>(x, w, bias, out, b, l, cin, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1279,5 +1267,6 @@ int Extractor<R>::head(const float* part_gap, const float* part_corr,
 // the lower rungs are instantiated in their own sources
 extern template struct Extractor<RBF16>;
 extern template struct Extractor<RI8>;
+extern template struct FlatConv<RBF16>;
 
 }  // namespace qr

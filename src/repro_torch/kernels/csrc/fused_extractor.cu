@@ -14,26 +14,22 @@
 
 using namespace qr;
 
-// cout in {16, 32, 64}; l a multiple of 16.  fp32 / bf16 (the
-// register-tiled kernel): cin in {3, 16, 32, 64}; with cin > 3, x and w
-// 16-byte aligned.
+// fp32 / bf16 (the register-tiled kernel; xs and wscale unused): cout in
+// {16, 32, 64}, cin in {3, 16, 32, 64}, l a multiple of 16; with cin > 3,
+// x and w 16-byte aligned.  The int8 flat conv is qr_conv3x3_imma.
 extern "C" int qr_conv3x3_norm_relu(const void* x, const void* xs,
                                     const void* w, const void* wscale,
                                     const void* bias, void* out, int b, int l,
                                     int cin, int cout, int rung,
                                     void* stream) {
-  const float *xsf = (const float*)xs, *sf = (const float*)wscale,
-              *bf = (const float*)bias;
+  (void)xs, (void)wscale;
+  const float *xf = (const float*)x, *bf = (const float*)bias;
   float* of = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (rung) {
-    case 0: return Extractor<RF32>::conv_any(x, xsf, w, sf, bf, of, b, l, cin,
-                                             cout, s);
-    case 1: return Extractor<RBF16>::conv_any(x, xsf, w, sf, bf, of, b, l,
-                                              cin, cout, s);
-    case 2: return Extractor<RI8>::conv_any(x, xsf, w, sf, bf, of, b, l, cin,
-                                            cout, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 0: return FlatConv<RF32>::any(xf, w, bf, of, b, l, cin, cout, s);
+    case 1: return FlatConv<RBF16>::any(xf, w, bf, of, b, l, cin, cout, s);
+    default: return (int)cudaErrorInvalidValue;  // int8: qr_conv3x3_imma
   }
 }
 

@@ -4,4 +4,5 @@
 
 namespace qr {
 template struct Extractor<RBF16>;
+template struct FlatConv<RBF16>;
 }  // namespace qr

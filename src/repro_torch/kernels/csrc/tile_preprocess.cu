@@ -22,15 +22,27 @@
 // The host passes the (index, weight) pairs read off the very float32
 // matrices the reference builds (`resize_matrix`); an edge-clamp row whose
 // two taps were summed into one entry arrives as (i, i) with weights
-// (w, 0).  One thread per output element.  Both kernels compute an output
-// pixel through the one device function `interp_pixel`, which keeps the
-// reference's order — vertical pass, horizontal pass, then *scale + bias —
-// with __fmul_rn/__fadd_rn so nvcc does not contract it into FMAs.  So the
-// staged image's pixel (row, col) is bit for bit the tile-first kernel's
-// pixel at the same (row, col): staged ingest followed by the tile gather
-// equals tile-first ingest exactly.  The tile kernel's image index is t / k,
-// so the (b, k, 2) escalation form costs nothing extra; its offsets are
-// clamped to [0, crop - l] as lax.dynamic_slice clamps them.
+// (w, 0).  Both kernels compute an output pixel through the one device
+// function `interp_pixel`, which keeps the reference's order — vertical
+// pass, horizontal pass, then *scale + bias — with __fmul_rn/__fadd_rn so
+// nvcc does not contract it into FMAs.  So the staged image's pixel
+// (row, col) is bit for bit the tile-first kernel's pixel at the same
+// (row, col): staged ingest followed by the tile gather equals tile-first
+// ingest exactly.
+//
+// `tile_preprocess_kernel`: a block owns `rows` output rows of one tile
+// (256 / tile rows, 4 at tile 64), a thread one output pixel and its three
+// channels.  The block clamps its tile's offsets once (to [0, crop - l],
+// as lax.dynamic_slice clamps them; the image is t / k, so the (b, k, 2)
+// escalation form costs nothing extra), stages the (index, weight) pairs
+// of its rows and of the tile's columns and the affine in shared memory,
+// and does its index math in 32 bits.  Its output rows are contiguous in
+// the (n, l, l, 3) output: the pixels land in shared memory (a thread's
+// three channels 12 bytes apart, conflict-free) and leave as float4
+// stores, coalesced.  The tables are one buffer (row pairs, column pairs,
+// affine), so a launch passes four pointers.  `preprocess_kernel` (the
+// staged ingest's) is one thread an output element over a grid-stride
+// loop.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,28 +71,62 @@ __device__ __forceinline__ float interp_pixel(
   return __fadd_rn(__fmul_rn(h, scale[c]), bias[c]);
 }
 
-__global__ void tile_preprocess_kernel(
-    const uint8_t* __restrict__ raw, const int* __restrict__ offsets,
-    const int* __restrict__ ry_idx, const float* __restrict__ ry_w,
-    const int* __restrict__ rx_idx, const float* __restrict__ rx_w,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    float* __restrict__ out, long long total, int k, int H, int W,
-    int tile, int crop) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int c = (int)(idx % 3);
-    const long long pix = idx / 3;
-    const int j = (int)(pix % tile);
-    const int i = (int)((pix / tile) % tile);
-    const long long t = pix / ((long long)tile * tile);
-    const long long img = t / k;
-    const int max_off = crop - tile;
-    const int oy = min(max(offsets[2 * t], 0), max_off);
-    const int ox = min(max(offsets[2 * t + 1], 0), max_off);
-    out[idx] = interp_pixel(raw + img * (long long)H * W * 3, W, oy + i,
-                            ox + j, c, ry_idx, ry_w, rx_idx, rx_w, scale,
-                            bias);
+constexpr int kIngestThreads = 256;
+
+// tables: ry_idx (crop, 2) int32 | ry_w (crop, 2) | rx_idx (crop, 2) int32
+// | rx_w (crop, 2) | scale (3) | bias (3), 4-byte words
+__global__ void __launch_bounds__(kIngestThreads)
+    tile_preprocess_kernel(const uint8_t* __restrict__ raw,
+                           const int* __restrict__ offsets,
+                           const int* __restrict__ tables,
+                           float* __restrict__ out, int k, int H, int W,
+                           int tile, int crop, int rows) {
+  extern __shared__ float4 smem4[];
+  int* s_ry_idx = reinterpret_cast<int*>(smem4);
+  float* s_ry_w = reinterpret_cast<float*>(s_ry_idx + 2 * rows);
+  int* s_rx_idx = reinterpret_cast<int*>(s_ry_w + 2 * rows);
+  float* s_rx_w = reinterpret_cast<float*>(s_rx_idx + 2 * tile);
+  float* s_aff = s_rx_w + 2 * tile;  // scale[3], bias[3], 2 unused
+  float* s_out = s_aff + 8;          // 16-byte aligned: 4 (rows + tile) + 8
+  const int groups = (tile + rows - 1) / rows;
+  const int t = blockIdx.x / groups;
+  const int r0 = (blockIdx.x - t * groups) * rows;
+  const int nr = min(rows, tile - r0);
+  const int max_off = crop - tile;
+  const int oy = min(max(offsets[2 * t], 0), max_off) + r0;
+  const int ox = min(max(offsets[2 * t + 1], 0), max_off);
+  const float* ry_w = reinterpret_cast<const float*>(tables + 2 * crop);
+  const int* rx_idx = tables + 4 * crop;
+  const float* rx_w = reinterpret_cast<const float*>(tables + 6 * crop);
+  const float* aff = reinterpret_cast<const float*>(tables + 8 * crop);
+  for (int e = threadIdx.x; e < 2 * nr; e += blockDim.x) {
+    s_ry_idx[e] = tables[2 * oy + e];
+    s_ry_w[e] = ry_w[2 * oy + e];
+  }
+  for (int e = threadIdx.x; e < 2 * tile; e += blockDim.x) {
+    s_rx_idx[e] = rx_idx[2 * ox + e];
+    s_rx_w[e] = rx_w[2 * ox + e];
+  }
+  if (threadIdx.x < 6) s_aff[threadIdx.x] = aff[threadIdx.x];
+  __syncthreads();
+  const uint8_t* im = raw + (long long)(t / k) * H * W * 3;
+  const int npix = nr * tile;
+  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
+    const int i = p / tile, j = p - i * tile;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      s_out[3 * p + c] = interp_pixel(im, W, i, j, c, s_ry_idx, s_ry_w,
+                                      s_rx_idx, s_rx_w, s_aff, s_aff + 3);
+  }
+  __syncthreads();
+  // the block's rows, contiguous in the output
+  float* o = out + ((long long)t * tile + r0) * tile * 3;
+  const int n = 3 * npix;
+  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    for (int e = threadIdx.x; e < n / 4; e += blockDim.x)
+      reinterpret_cast<float4*>(o)[e] = reinterpret_cast<float4*>(s_out)[e];
+  } else {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) o[e] = s_out[e];
   }
 }
 
@@ -111,18 +157,19 @@ unsigned grid_for(long long total, int threads) {
 
 }  // namespace
 
-extern "C" int qr_tile_preprocess(
-    const void* raw, const void* offsets, const void* ry_idx,
-    const void* ry_w, const void* rx_idx, const void* rx_w,
-    const void* scale, const void* bias, void* out, int n, int k, int H,
-    int W, int tile, int crop, void* stream) {
-  const long long total = (long long)n * tile * tile * 3;
-  tile_preprocess_kernel<<<grid_for(total, 256), 256, 0,
+// tables as tile_preprocess_kernel reads them; n tiles (b * k), tile <= crop.
+extern "C" int qr_tile_preprocess(const void* raw, const void* offsets,
+                                  const void* tables, void* out, int n,
+                                  int k, int H, int W, int tile, int crop,
+                                  void* stream) {
+  if (n <= 0 || tile <= 0 || tile > crop) return (int)cudaErrorInvalidValue;
+  const int rows = tile < kIngestThreads ? kIngestThreads / tile : 1;
+  const int groups = (tile + rows - 1) / rows;
+  const size_t smem = sizeof(float) * (4 * (rows + tile) + 8 + 3 * rows * tile);
+  tile_preprocess_kernel<<<n * groups, kIngestThreads, smem,
                            (cudaStream_t)stream>>>(
-      (const uint8_t*)raw, (const int*)offsets, (const int*)ry_idx,
-      (const float*)ry_w, (const int*)rx_idx, (const float*)rx_w,
-      (const float*)scale, (const float*)bias, (float*)out, total, k, H, W,
-      tile, crop);
+      (const uint8_t*)raw, (const int*)offsets, (const int*)tables,
+      (float*)out, k, H, W, tile, crop, rows);
   return (int)cudaGetLastError();
 }
 

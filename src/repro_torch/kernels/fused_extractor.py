@@ -15,12 +15,14 @@ schedule (``fused_extractor_blocked``).  The pack's dtype picks the rung
   correlation partials per 8x16 pixel tile (:func:`to_bits_partials`),
   and a head kernel (:func:`head_logits`).  At fp32 and bf16 the conv
   and to_bits kernels are register-tiled (a block owns a 16x16 pixel
-  tile and every output column, a thread 8 pixels x 8 columns); the
-  int8 rung keeps one thread per pixel of an 8x16 tile and adds a pass
-  before each conv that quantizes its input once per pixel.
-  Activations go through global memory between layers, in fp32 (one
-  image's activation is 1 MiB at l=64, C=64, more than an SM's shared
-  memory).
+  tile and every output column, a thread 8 pixels x 8 columns).  At
+  int8 they take each tap's dot on the int8 tensor cores
+  (``mma.sync`` m16n8k32, weights re-laid once into the fragments'
+  order by :func:`imma_fragments`) and quantize each layer's output in
+  their epilogue, so activations travel as int8 words and one fp32
+  scale a pixel (:class:`QuantAct`) and no quantize pass runs.  Between
+  layers activations go through global memory (one image's fp32
+  activation is 1 MiB at l=64, C=64, more than an SM's shared memory).
 
 The blocked schedule (batch block ``bb``, output-channel tile ``ct``,
 ``double_buffer``; see ``kernels/autotune.Schedule``):
@@ -31,18 +33,22 @@ The blocked schedule (batch block ``bb``, output-channel tile ``ct``,
   output columns in ``ct`` slices, pad rows sliced off;
 * :func:`fused_extractor_blocked_cuda` — the blocked CUDA conv kernel
   for the hidden blocks (``conv_blocked_kernel``), then the flat
-  to_bits and head kernels.  Its logits equal the flat kernel's bit
-  for bit on every schedule, at every rung.
+  to_bits and head kernels (at int8 a quantize pass before each conv,
+  and the one-thread-per-pixel ``__dp4a`` to_bits kernel).  Its logits equal
+  the flat kernel's bit for bit on every schedule, at every rung.
 
 All four return ``(logits, embed)`` with ``embed`` the (b, n_bits) GAP
 vector when ``with_embed``, else ``logits`` alone.
 """
 from __future__ import annotations
 
+import weakref
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.extractor import (extractor_forward_packed_embed,
-                                        packed_dtype)
+                                        packed_dtype, quantize_rows_int8)
 from repro_torch.kernels import _build
 
 # instantiations of the CUDA kernels (csrc/extractor.cuh)
@@ -60,6 +66,81 @@ RUNGS = {"fp32": 0, "bf16": 1, "int8": 2}
 # each rung's type parameter and head dtype in the kernels' names
 _RUNG_TYPES = ("qr::RF32", "qr::RBF16", "qr::RI8")
 _HEAD_TYPES = ("float", "__nv_bfloat16", "float")
+INT8 = RUNGS["int8"]
+
+
+class QuantAct(NamedTuple):
+    """An int8 activation as the int8 flat kernels pass it between
+    layers: ``q`` (b, l, l, c / 4) int32, four channels' int8 values to a
+    little-endian word, and ``s`` (b, l, l) fp32, one scale a pixel
+    (``quantize_rows_int8``'s q and s)."""
+    q: torch.Tensor
+    s: torch.Tensor
+
+
+def quantize_words(x2d: torch.Tensor):
+    """(M, c) fp32 -> ((M, ceil(c / 4)) int32 words, (M,) fp32 scales):
+    ``quantize_rows_int8`` with four channels' int8 values packed into a
+    little-endian int32 word (a last partial word padded with zeros), the
+    layout the int8 kernels read and write."""
+    xq, s = quantize_rows_int8(x2d)
+    pad = -x2d.shape[1] % 4
+    if pad:
+        xq = torch.cat([xq, xq.new_zeros((xq.shape[0], pad))], dim=1)
+    return xq.contiguous().view(torch.int32), s[:, 0]
+
+
+def imma_geometry(cin: int):
+    """(words a pixel in memory, k-steps of 32 channels, words the dot
+    reads a pixel) of an int8 layer with ``cin`` input channels."""
+    cw = -(-cin // 4)
+    ks = -(-cw // 8)
+    return cw, ks, 8 * ks
+
+
+def weight_fragments(w2d: torch.Tensor, cin: int) -> torch.Tensor:
+    """A packed int8 conv weight (9 * cin, cout) -> the int8 tensor-core
+    kernels' B fragments, (9, KS, NT, 32, 2) int32: for tap, k-step kk
+    and column tile j, lane 4 g + t holds the words of input channels
+    32 kk + 4 t .. + 3 and 32 kk + 16 + 4 t .. + 3 of column 8 j + g
+    (``mma.m16n8k32``'s B layout).  Input channels past cin and columns
+    past cout (up to a multiple of 8) are zero."""
+    cout = w2d.shape[1]
+    _, ks, kw = imma_geometry(cin)
+    ncol = -(-cout // 8) * 8
+    w = w2d.new_zeros((9, 4 * kw, ncol))
+    w[:, :cin, :cout] = w2d.reshape(9, cin, cout)
+    words = w.reshape(9, kw, 4, ncol).permute(0, 1, 3, 2).contiguous() \
+        .view(torch.int32).reshape(9, ks, 2, 4, ncol // 8, 8)
+    # (tap, kk, half, t, j, g) -> (tap, kk, j, g, t, half)
+    return words.permute(0, 1, 4, 5, 3, 2).reshape(
+        9, ks, ncol // 8, 32, 2).contiguous()
+
+
+# weight fragments per packed int8 conv weight, made once on its device:
+# id(weight) -> (weakref to it, versions, (fragments, scales)), dropped
+# when the weight is freed
+_FRAGMENTS: dict = {}
+
+
+def imma_fragments(blk: dict, cin: int):
+    """The int8 flat kernels' form of a pack entry: (B fragments of its
+    weight, its column scales zero-padded to a multiple of 8), computed
+    on the weight's device at first use and cached beside the pack (keyed
+    by the weight tensor; the pack itself is left as ``pack_params`` made
+    it)."""
+    w, scale = blk["w"], blk["scale"]
+    key = (w._version, scale.data_ptr(), scale._version, cin)
+    hit = _FRAGMENTS.get(id(w))
+    if hit is None or hit[0]() is not w or hit[1] != key:
+        ncol = -(-w.shape[1] // 8) * 8
+        ws = scale.new_zeros(ncol)
+        ws[:w.shape[1]] = scale
+        if hit is None or hit[0]() is not w:
+            weakref.finalize(w, _FRAGMENTS.pop, id(w), None)
+        hit = (weakref.ref(w), key, (weight_fragments(w, cin), ws))
+        _FRAGMENTS[id(w)] = hit
+    return hit[2]
 
 
 def fused_extractor_plain(tiles: torch.Tensor, packed: dict, *,
@@ -133,23 +214,27 @@ def _launched(name: str):
 
 def conv_kernel_name(rung: int, cin: int, cout: int,
                      channel_tile=None) -> str:
-    """The CUDA kernel that ``qr_conv3x3_norm_relu`` (or, with a
-    ``channel_tile``, ``qr_conv3x3_norm_relu_blocked``) launches for
-    this layer at this rung."""
-    r = _RUNG_TYPES[rung]
+    """The CUDA kernel that :func:`conv_block` launches for this layer at
+    this rung: ``qr_conv3x3_norm_relu`` (fp32 / bf16), ``qr_conv3x3_imma``
+    (int8), or with a ``channel_tile`` ``qr_conv3x3_norm_relu_blocked``."""
     if channel_tile is not None:
-        return f"conv_blocked_kernel<{r},{cout},{channel_tile}>"
-    if rung == RUNGS["int8"]:
-        return f"conv_norm_relu_kernel<{r},{cout}>"
-    return f"conv_regtile_kernel<{r},{cout},{cin}>"
+        return f"conv_blocked_kernel<{_RUNG_TYPES[rung]},{cout}," \
+            f"{channel_tile}>"
+    if rung == INT8:
+        return f"conv_imma_kernel<{cin},{cout}>"
+    return f"conv_regtile_kernel<{_RUNG_TYPES[rung]},{cout},{cin}>"
 
 
-def to_bits_kernel_name(rung: int, cin: int, n_bits: int) -> str:
-    """The CUDA kernel that ``qr_conv3x3_gap_corr`` launches."""
-    r = _RUNG_TYPES[rung]
-    if rung == RUNGS["int8"]:
-        return f"conv_gap_corr_kernel<{r},{n_bits}>"
-    return f"gap_corr_regtile_kernel<{r},{cin}>"
+def to_bits_kernel_name(rung: int, cin: int, n_bits: int,
+                        blocked: bool = False) -> str:
+    """The CUDA kernel that :func:`to_bits_partials` launches: at int8
+    ``qr_conv3x3_gap_corr_imma``'s on the flat schedule, the
+    one-thread-per-pixel ``conv_gap_corr_kernel`` after the blocked
+    schedule."""
+    if rung == INT8:
+        return (f"conv_gap_corr_kernel<{_RUNG_TYPES[rung]},{n_bits}>"
+                if blocked else f"gap_corr_imma_kernel<{cin}>")
+    return f"gap_corr_regtile_kernel<{_RUNG_TYPES[rung]},{cin}>"
 
 
 def head_kernel_name(rung: int, n_bits: int) -> str:
@@ -158,9 +243,10 @@ def head_kernel_name(rung: int, n_bits: int) -> str:
 
 
 def _layer_input(lib, x, cin, rung, stream):
-    """A conv's input: the activation ``x`` itself, or at int8 its
-    quantized words and per-pixel scales (one launch of the pass)."""
-    if rung != RUNGS["int8"]:
+    """A conv's input on the blocked schedule: the activation ``x``
+    itself, or at int8 its quantized words and per-pixel scales (one
+    launch of the pass)."""
+    if rung != INT8:
         return x, None
     npix = x.numel() // cin
     q = torch.empty((npix, (cin + 3) // 4), dtype=torch.int32,
@@ -177,10 +263,14 @@ def conv_block(lib, x, blk, rung, stream, blocked=None):
     the pack entry ``blk`` on the contiguous fp32 activation ``x``
     (b, l, l, cin), cin 3 or a hidden width: the flat kernel
     (``qr_conv3x3_norm_relu``), or with ``blocked = (bb, ct,
-    double_buffer)`` the blocked one; at int8 after the quantize pass.
-    Returns the (b, l, l, cout) activation.  A kernel launch of the op,
-    not the op: it counts in ``kernel_launches``, not in
-    ``launch_counts``."""
+    double_buffer)`` the blocked one (at int8 after the quantize pass).
+    Returns the (b, l, l, cout) fp32 activation.  At int8 on the flat
+    schedule (``qr_conv3x3_imma``) ``x`` is the tiles (cin 3) or the
+    layer before's :class:`QuantAct`, and so is what it returns.  A
+    kernel launch of the op, not the op: it counts in
+    ``kernel_launches``, not in ``launch_counts``."""
+    if rung == INT8 and blocked is None:
+        return _conv_block_imma(lib, x, blk, stream)
     b, l, cin = x.shape[0], x.shape[1], x.shape[3]
     cout = blk["w"].shape[-1]
     y = torch.empty((b, l, l, cout), dtype=torch.float32, device=x.device)
@@ -201,9 +291,30 @@ def conv_block(lib, x, blk, rung, stream, blocked=None):
     return y
 
 
+def _conv_block_imma(lib, x, blk, stream) -> QuantAct:
+    """The int8 flat schedule's hidden block: fp32 tiles or a
+    :class:`QuantAct` in, a :class:`QuantAct` out."""
+    if isinstance(x, QuantAct):
+        xq, xs, cin = x.q, x.s, 4 * x.q.shape[3]
+    else:
+        xq, xs, cin = x, None, x.shape[3]
+    b, l = xq.shape[0], xq.shape[1]
+    cout = blk["w"].shape[-1]
+    frags, ws = imma_fragments(blk, cin)
+    out = QuantAct(
+        torch.empty((b, l, l, cout // 4), dtype=torch.int32,
+                    device=xq.device),
+        torch.empty((b, l, l), dtype=torch.float32, device=xq.device))
+    _build.check("qr_conv3x3_imma", lib.qr_conv3x3_imma(
+        xq.data_ptr(), _ptr(xs), frags.data_ptr(), ws.data_ptr(),
+        blk["b"].data_ptr(), out.q.data_ptr(), out.s.data_ptr(), b, l, cin,
+        cout, stream))
+    _launched(conv_kernel_name(INT8, cin, cout))
+    return out
+
+
 def _launch_flat(lib, tiles, packed, rung, with_embed, stream):
-    """The flat schedule's launches on one stream (D + 2 kernels, plus a
-    quantize pass per conv at int8)."""
+    """The flat schedule's launches on one stream (D + 2 kernels)."""
     x = tiles
     for blk in packed["blocks"]:
         x = conv_block(lib, x, blk, rung, stream)
@@ -220,7 +331,7 @@ def fused_extractor_cuda(tiles: torch.Tensor, packed: dict, *,
     if tiles.shape[0] == 0:
         return _empty(tiles, packed, with_embed)
     out = _launch_flat(_build.library(), tiles, packed, rung, with_embed,
-                       torch.cuda.current_stream(tiles.device).cuda_stream)
+                       _build.current_stream(tiles.device))
     _build.launch_counts["fused_extractor"] += 1
     return out
 
@@ -234,26 +345,38 @@ def _empty(tiles, packed, with_embed):
 
 def to_bits_partials(lib, tiles, x, packed, rung, stream):
     """The to_bits + GAP + correlation kernel on the last hidden
-    activation ``x`` (at int8 after the quantize pass): the
+    activation ``x`` (at int8: the flat schedule's :class:`QuantAct`, or
+    the blocked schedule's fp32 activation after the quantize pass): the
     (b * (l / 8) * (l / 16), n_bits) GAP partials and, when the
     correlation bank applies at this tile size, the correlation
     partials (else None), one row per 8x16 pixel tile, tile-major
     within an image."""
-    b, l, cin = x.shape[0], x.shape[1], x.shape[3]
+    imma = isinstance(x, QuantAct)
+    xq = x.q if imma else x
+    b, l = xq.shape[0], xq.shape[1]
+    cin = 4 * xq.shape[3] if imma else xq.shape[3]
     n_bits = packed["head"]["b"].shape[0]
     n_tiles = (l // PARTIAL_TILE[0]) * (l // PARTIAL_TILE[1])
     has_corr = "corr" in packed and packed["corr"].shape[0] == l * l
     part_gap = torch.empty((b * n_tiles, n_bits), dtype=torch.float32,
-                           device=x.device)
+                           device=xq.device)
     part_corr = torch.empty_like(part_gap) if has_corr else None
     tb = packed["to_bits"]
+    corr = _ptr(packed["corr"] if has_corr else None)
+    if imma:
+        frags, ws = imma_fragments(tb, cin)
+        _build.check("qr_conv3x3_gap_corr_imma", lib.qr_conv3x3_gap_corr_imma(
+            x.q.data_ptr(), x.s.data_ptr(), frags.data_ptr(), ws.data_ptr(),
+            tb["b"].data_ptr(), tiles.data_ptr(), corr, part_gap.data_ptr(),
+            _ptr(part_corr), b, l, cin, n_bits, int(has_corr), stream))
+        _launched(to_bits_kernel_name(rung, cin, n_bits))
+        return part_gap, part_corr
     xq, xs = _layer_input(lib, x, cin, rung, stream)
     _build.check("qr_conv3x3_gap_corr", lib.qr_conv3x3_gap_corr(
         xq.data_ptr(), _ptr(xs), tb["w"].data_ptr(), _ptr(tb.get("scale")),
-        tb["b"].data_ptr(), tiles.data_ptr(),
-        _ptr(packed["corr"] if has_corr else None), part_gap.data_ptr(),
+        tb["b"].data_ptr(), tiles.data_ptr(), corr, part_gap.data_ptr(),
         _ptr(part_corr), b, l, cin, n_bits, int(has_corr), rung, stream))
-    _launched(to_bits_kernel_name(rung, cin, n_bits))
+    _launched(to_bits_kernel_name(rung, cin, n_bits, blocked=rung == INT8))
     return part_gap, part_corr
 
 
@@ -372,6 +495,6 @@ def fused_extractor_blocked_cuda(tiles: torch.Tensor, packed: dict, *,
         return _empty(tiles, packed, with_embed)
     out = _launch_blocked(_build.library(), tiles, packed, rung, bb, ct,
                           double_buffer, with_embed,
-                          torch.cuda.current_stream(tiles.device).cuda_stream)
+                          _build.current_stream(tiles.device))
     _build.launch_counts["fused_extractor_blocked"] += 1
     return out

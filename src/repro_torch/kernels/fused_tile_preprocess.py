@@ -11,7 +11,11 @@ never the full preprocessed image.
   (``interp_affine`` on the per-image sliced matrices) in PyTorch;
 * :func:`fused_tile_preprocess_cuda` — the hand-written CUDA kernel
   (``csrc/tile_preprocess.cu``): a gather with two taps per axis, whose
-  (index, weight) pairs are read off the same float32 matrices.
+  (index, weight) pairs are read off the same float32 matrices; a block
+  owns rows of one tile, a thread one pixel.  Its constant inputs (the
+  pairs and the affine, one device buffer) and the launch's integer
+  arguments are made once per geometry (:func:`ingest_geometry`), so a
+  call allocates its output and launches.
 
 Offsets are (b, 2) — one tile per image, output (b, l, l, 3) — or
 (b, k, 2) — k tiles per image, output (b*k, l, l, 3) image-major.
@@ -19,6 +23,9 @@ Offsets are clamped to [0, crop - l] as ``lax.dynamic_slice`` clamps
 them in the reference.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -73,12 +80,48 @@ def fused_tile_preprocess_plain(raw: torch.Tensor, offsets: torch.Tensor,
     return interp_affine(img, ry_t, rx_t, scale, bias)
 
 
+class IngestGeometry(NamedTuple):
+    """What a tile-first ingest call of one geometry launches with:
+    the kernel's tables on the device (:func:`ingest_tables`) and their
+    address, the output's shape and the launch's integer arguments (n,
+    k, H, W, tile, crop)."""
+    tables: torch.Tensor
+    tables_ptr: int
+    out_shape: tuple
+    ints: tuple
+
+
+def ingest_tables(H: int, W: int, resize: int, crop: int, mean, std,
+                  device: str) -> torch.Tensor:
+    """The tile-first kernel's constant input, one int32 buffer on
+    ``device``: the six tables of ``device_tables`` end to end, ry_idx
+    (crop, 2) | ry_w (crop, 2) | rx_idx (crop, 2) | rx_w (crop, 2) |
+    scale (3) | bias (3), the float32 ones as their bits."""
+    return torch.cat([t.reshape(-1).view(torch.int32) for t in
+                      device_tables(H, W, resize, crop, mean, std, device)])
+
+
+@functools.lru_cache(maxsize=64)
+def ingest_geometry(raw_shape, offsets_shape, device, resize: int,
+                    crop: int, tile: int, mean, std) -> IngestGeometry:
+    """The :class:`IngestGeometry` of these shapes and options on
+    ``device``, made once (raises ValueError for shapes the op does not
+    take); ``mean`` / ``std`` as ``hashable`` gives them."""
+    _check(torch.empty(raw_shape, device="meta"),
+           torch.empty(offsets_shape, device="meta"), crop, tile)
+    b, H, W, _ = raw_shape
+    k = offsets_shape[1] if len(offsets_shape) == 3 else 1
+    tables = ingest_tables(H, W, resize, crop, mean, std, str(device))
+    return IngestGeometry(tables, tables.data_ptr(), (b * k, tile, tile, 3),
+                          (b * k, k, H, W, tile, crop))
+
+
 def fused_tile_preprocess_cuda(raw: torch.Tensor, offsets: torch.Tensor,
                                *, resize: int, crop: int, tile: int,
                                mean=None, std=None) -> torch.Tensor:
     """The CUDA kernel: same contract as the plain version."""
-    _check(raw, offsets, crop, tile)
-    if raw.device.type != "cuda" or offsets.device != raw.device:
+    dev = raw.device
+    if dev.type != "cuda" or offsets.device != dev:
         raise ValueError("fused_tile_preprocess_cuda needs raw and offsets "
                          "on one CUDA device")
     if raw.dtype != torch.uint8 or offsets.dtype != torch.int32:
@@ -86,18 +129,13 @@ def fused_tile_preprocess_cuda(raw: torch.Tensor, offsets: torch.Tensor,
                         f"{raw.dtype} / {offsets.dtype}")
     if not (raw.is_contiguous() and offsets.is_contiguous()):
         raise ValueError("raw and offsets must be contiguous")
-    b, H, W, _ = raw.shape
-    k = offsets.shape[1] if offsets.dim() == 3 else 1
-    n = b * k
-    tables = device_tables(H, W, resize, crop, hashable(mean),
-                           hashable(std), str(raw.device))
-    out = torch.empty((n, tile, tile, 3), dtype=torch.float32,
-                      device=raw.device)
-    if n:
-        err = _build.library().qr_tile_preprocess(
-            raw.data_ptr(), offsets.data_ptr(),
-            *(t.data_ptr() for t in tables), out.data_ptr(), n, k, H, W,
-            tile, crop, torch.cuda.current_stream(raw.device).cuda_stream)
-        _build.check("qr_tile_preprocess", err)
+    geo = ingest_geometry(raw.shape, offsets.shape, dev, resize, crop, tile,
+                          None if mean is None else hashable(mean),
+                          None if std is None else hashable(std))
+    out = torch.empty(geo.out_shape, dtype=torch.float32, device=dev)
+    if geo.ints[0]:
+        _build.check("qr_tile_preprocess", _build.library().qr_tile_preprocess(
+            raw.data_ptr(), offsets.data_ptr(), geo.tables_ptr,
+            out.data_ptr(), *geo.ints, _build.current_stream(dev)))
         _build.launch_counts["fused_tile_preprocess"] += 1
     return out

@@ -73,8 +73,12 @@ def fused_extractor(tiles: torch.Tensor, packed: dict, schedule=None,
 
 def rs_decode(bits: torch.Tensor, *, code: RSCode = DEFAULT_CODE
               ) -> Dict[str, torch.Tensor]:
-    """Batched Berlekamp-Welch decode of (B, 60) bits for the default
-    RS(15,12) GF(16) code."""
+    """Batched t = 1 decode of integer (or bool) bits (B, 60) for the
+    default RS(15,12) GF(16) code, equal to the reference's
+    Berlekamp-Welch kernel on every input: bits are cast to int32 as the
+    reference casts them, and entries outside {0, 1} decode as there
+    (the CUDA kernel's closed form covers words in {0, 1}, the
+    reference's algorithm the rest, in one launch)."""
     _rs.check_code(code)
     fn = (_rs.rs_decode_plain if _on_cpu(bits, "rs_decode")
           else _rs.rs_decode_cuda)

@@ -9,19 +9,21 @@
   re-interpolation;
 * :func:`rs_decode_cuda` — the hand-written CUDA kernel
   (``csrc/rs_decode.cu``), a closed-form t = 1 syndrome decoder, one
-  warp a codeword.  On bits in {0, 1} it equals the Berlekamp-Welch
-  reference on all four outputs (the argument is in the source's note;
+  warp a codeword, for words in {0, 1} (the argument that it equals the
+  Berlekamp-Welch reference there is in the source's note;
   ``tests/test_torch_rs.py`` holds a numpy model of its arithmetic to
-  JAX's Pallas kernel and to the plain version).
+  JAX's Pallas kernel and to the plain version); a word with any other
+  entry is decoded in the same launch by the reference's algorithm,
+  step for step in its int32 arithmetic.
 
-Both map bits (B, 60) -> dict(message_bits (B, 48) int32,
+Both map integer (or bool) bits (B, 60), cast to int32 first as the
+reference casts them, to dict(message_bits (B, 48) int32,
 codeword_bits (B, 60) int32, ok (B,) bool, n_corrected (B,) int32);
 on failure the codeword is the received word and n_corrected is -1.
-The outputs are integers and equal the reference's exactly (the plain
-version on any int input, tie-breaks and degenerate inputs included;
-the kernel on {0, 1} bits).  Only the default code is ported; other
-codes go to the batched ``jax_rs`` counterpart (ROADMAP queue 1
-item 8).
+The outputs are integers and equal the reference's exactly on every
+input, tie-breaks, degenerate words and entries outside {0, 1}
+included.  Only the default code is ported; other codes go to the
+batched ``jax_rs`` counterpart (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -50,16 +52,24 @@ def check_code(code: RSCode):
             f"batched jax_rs counterpart (ROADMAP queue 1 item 8)")
 
 
+def _wrap32(a: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to the int32 range, as the reference's int32
+    arithmetic wraps them."""
+    return ((a + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
 def _gf16_mul(a: torch.Tensor, b) -> torch.Tensor:
     """Carry-less GF(16) multiply, elementwise, argument order as in the
-    reference (bits of ``b`` select shifted copies of ``a``)."""
+    reference (bits of ``b`` select shifted copies of ``a``), wrapped to
+    int32: out-of-range symbols shift bits past bit 31, which the
+    reference's int32 shifts drop."""
     res = torch.zeros_like(a)
     for i in range(M):
         res = res ^ torch.where(((b >> i) & 1) != 0, a << i, 0)
     for j in (6, 5, 4):
         res = torch.where(((res >> j) & 1) != 0,
                           res ^ (0b10011 << (j - 4)), res)
-    return res
+    return _wrap32(res)
 
 
 def _gf16_inv(a: torch.Tensor) -> torch.Tensor:
@@ -87,17 +97,21 @@ def _consts():
 
 
 def rs_decode_plain(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Integer state is int64 throughout (torch's sums and cumsums of
-    int32 promote to it); the outputs are cast to int32 at the end."""
+    """Any integer (or bool) bits are cast to int32 first, as the
+    reference's ``astype(jnp.int32)``.  Integer state is int64 (torch's
+    sums and cumsums of int32 promote to it), wrapped to the int32 range
+    wherever the reference's int32 arithmetic wraps (symbol sums and
+    carry-less products), so every integer input decodes as in the
+    reference; the outputs are cast to int32 at the end."""
     dev = bits.device
-    bits = bits.to(torch.int64)
+    bits = bits.to(torch.int32).to(torch.int64)
     B = bits.shape[0]
     xs_np, powsQ_np, powsN_np = _consts()
     xs, powsQ, powsN = (torch.as_tensor(a, dtype=torch.int64, device=dev)
                         for a in (xs_np, powsQ_np, powsN_np))
 
     w = 1 << (M - 1 - torch.arange(M, device=dev))
-    R = (bits.reshape(B, N, M) * w).sum(-1)  # (B, N)
+    R = _wrap32((bits.reshape(B, N, M) * w).sum(-1))  # (B, N)
     A = torch.cat([_gf16_mul(R[:, :, None], powsQ[None]),
                    powsN[None].expand(B, N, NN)], dim=2)
 
@@ -180,17 +194,22 @@ def rs_decode_plain(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def rs_decode_cuda(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The CUDA kernel: same contract as the plain version on bits in
-    {0, 1}, as the ``bits`` stage makes them (on other values the
-    plain version's carry-less arithmetic is not modelled); ``bits``
-    must be a contiguous, 8-byte aligned int32 (B, 60) CUDA tensor.
-    Launches the kernel and nothing else."""
-    if bits.device.type != "cuda" or bits.dtype != torch.int32 or \
-            bits.dim() != 2 or bits.shape[1] != N * M or \
-            not bits.is_contiguous() or bits.data_ptr() % 8:
-        raise ValueError(f"rs_decode_cuda needs contiguous, 8-byte aligned "
-                         f"int32 (B, {N * M}) CUDA bits, got {bits.dtype} "
-                         f"{tuple(bits.shape)} on {bits.device}")
+    """The CUDA kernel: same contract as the plain version on every
+    integer input.  Integer or bool bits of another dtype are cast to
+    int32 first (one torch cast, as the reference's ``astype``); int32
+    bits must be a contiguous, 8-byte aligned (B, 60) CUDA tensor, and
+    then the kernel is the only launch."""
+    if bits.device.type != "cuda" or bits.dim() != 2 or \
+            bits.shape[1] != N * M or bits.dtype.is_floating_point or \
+            bits.dtype.is_complex:
+        raise ValueError(f"rs_decode_cuda needs integer or bool (B, {N * M}) "
+                         f"CUDA bits, got {bits.dtype} {tuple(bits.shape)} "
+                         f"on {bits.device}")
+    if bits.dtype != torch.int32:
+        bits = bits.to(torch.int32)
+    if not bits.is_contiguous() or bits.data_ptr() % 8:
+        raise ValueError("rs_decode_cuda needs contiguous, 8-byte aligned "
+                         "int32 bits")
     B = bits.shape[0]
     msg = torch.empty((B, K * M), dtype=torch.int32, device=bits.device)
     cw = torch.empty((B, N * M), dtype=torch.int32, device=bits.device)
@@ -199,8 +218,7 @@ def rs_decode_cuda(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
     if B:
         err = _build.library().qr_rs_decode(
             bits.data_ptr(), msg.data_ptr(), cw.data_ptr(), ok.data_ptr(),
-            ncorr.data_ptr(), B,
-            torch.cuda.current_stream(bits.device).cuda_stream)
+            ncorr.data_ptr(), B, _build.current_stream(bits.device))
         _build.check("qr_rs_decode", err)
         _build.launch_counts["rs_decode"] += 1
     return {"message_bits": msg, "codeword_bits": cw, "ok": ok,

@@ -16,8 +16,11 @@ of the port the contracts are exact: staged ingest (full-image kernel,
 then the tile gather) equals tile-first ingest, and the blocked decode
 kernel equals the flat one, bit for bit, on every candidate schedule
 and channel tile, at every rung; so does each hidden block alone (the
-flat kernel's C entry point against the blocked one's, fp32 and bf16),
-and a row's logits do not depend on the batch it came in.
+flat kernel's C entry point against the blocked one's; at int8 the flat
+tensor-core kernel's words and scales against the quantize pass on the
+blocked kernel's output), and a row's logits do not depend on the batch
+it came in.  The RS kernel equals the plain version on words with
+entries outside {0, 1} and on int64 and bool bits.
 """
 import numpy as np
 import pytest
@@ -171,12 +174,71 @@ def test_rs_kernel_rejects_misaligned_bits(dev):
 
 
 def test_cuda_input_goes_to_the_kernels(dev):
+    """One kernel launch a call; int64 and bool bits are cast to int32 as
+    the reference casts them, float bits are refused."""
     ops.reset_launch_counts()
     bits = torch.zeros((4, 60), dtype=torch.int32, device=dev)
     ops.rs_decode(bits)
     assert ops.launch_counts()["rs_decode"] == 1
+    for other in (bits.to(torch.int64), bits.bool()):
+        got = ops.rs_decode(other)
+        assert torch.equal(got["ok"], torch.ones(4, dtype=torch.bool,
+                                                 device=dev))
+    assert ops.launch_counts()["rs_decode"] == 3
     with pytest.raises(ValueError):
-        ops.rs_decode(bits.to(torch.int64))  # the kernel takes int32 only
+        ops.rs_decode(bits.float())
+
+
+def _rs_out_of_domain_words(seed: int) -> np.ndarray:
+    """Codewords and single-error words with one to four entries of 2,
+    -1, 3, -2 or 5; words over [-2, 3]; words with entries at the int32
+    limits (-2^31 times a symbol weight wraps to 0); {0, 1} words beside
+    them, so warps of both kinds share blocks."""
+    rng = np.random.default_rng(seed)
+    gen = np.stack([codec.rs_encode(codec.DEFAULT_CODE, e)
+                    for e in np.eye(48, dtype=int)])
+    rows = []
+    for i, cw in enumerate(rng.integers(0, 2, (64, 48)) @ gen % 2):
+        w = cw.astype(np.int64)
+        if i % 2:
+            w = _flip_symbol(w, int(rng.integers(15)), int(rng.integers(16)))
+        if i % 4 != 3:
+            for j in rng.choice(60, int(rng.integers(1, 5)), replace=False):
+                w[j] = rng.choice([2, -1, 3, -2, 5])
+        rows.append(w)
+    rows += list(rng.integers(-2, 4, (32, 60)))
+    big = [2 ** 30, 2 ** 29, -2 ** 31, 2 ** 31 - 1, -2 ** 30 - 7]
+    for i in range(32):
+        w = rng.integers(0, 2, 60) if i % 2 else np.zeros(60, np.int64)
+        w[(7 * i) % 60] = -2 ** 31
+        w[(11 * i + 3) % 60] = big[i % 5]
+        rows.append(w)
+    words = np.stack(rows).astype(np.int32)
+    return words[rng.permutation(len(words))]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.bool])
+@pytest.mark.parametrize("n", [1, 5, 128])
+def test_rs_kernel_equals_plain_outside_01(dev, dtype, n):
+    """Entries outside {0, 1}: the kernel decodes such a word by the
+    reference's algorithm, and equals the plain version (held to JAX's
+    kernel on the CPU) on all four outputs; int64 bits that wrap to the
+    int32 words decode as those, bool bits as 0/1."""
+    words = _rs_out_of_domain_words(n)[:n]
+    if dtype == torch.int64:
+        w64 = words.astype(np.int64)
+        bits = torch.as_tensor(w64 + (1 << 32) * np.sign(w64)).to(dev)
+    elif dtype == torch.bool:
+        bits = torch.as_tensor(words != 0).to(dev)
+    else:
+        bits = torch.as_tensor(words).to(dev)
+    want = rs.rs_decode_plain(torch.as_tensor(words).to(dev)
+                              if dtype != torch.bool else bits)
+    got = rs.rs_decode_cuda(bits)
+    torch.cuda.synchronize()
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert torch.equal(got[k], want[k]), k
 
 
 GEOMS = [(64, 40, 32, 16), (50, 36, 32, 16), (288, 288, 256, 64),
@@ -344,56 +406,84 @@ def test_rung_ops_count_their_launches(dev, dtype):
 def test_decode_kernels_count_their_launches(dev, dtype):
     """Each CUDA kernel of a decode call counts its own launches, under
     the name the per-layer launchers give it: depth 3 at C=16 is layer 0,
-    two hidden blocks, to_bits and the head (at int8 one quantize pass
-    before each conv); a blocked call counts the blocked conv instead."""
+    two hidden blocks, to_bits and the head, and at int8 no quantize
+    pass (the tensor-core kernels quantize in their epilogue); a blocked
+    call counts the blocked conv instead, and at int8 one quantize pass
+    before each conv and the one-thread-per-pixel to_bits kernel."""
     pk = _rung_pack(dev, dtype, channels=16, depth=3, tile=16)
     tiles = torch.zeros((2, 16, 16, 3), device=dev)
     r = fx.RUNGS[dtype]
-    tail = {fx.to_bits_kernel_name(r, 16, 60): 1,
-            fx.head_kernel_name(r, 60): 1}
+    head = {fx.head_kernel_name(r, 60): 1}
+    flat = {fx.conv_kernel_name(r, 3, 16): 1,
+            fx.conv_kernel_name(r, 16, 16): 2,
+            fx.to_bits_kernel_name(r, 16, 60): 1, **head}
+    blocked = {fx.conv_kernel_name(r, 16, 16, 8): 3,
+               fx.to_bits_kernel_name(r, 16, 60, blocked=True): 1, **head}
     if dtype == "int8":
-        tail["quantize_rows_kernel"] = 4
-        flat = {fx.conv_kernel_name(r, 3, 16): 3}
-    else:
-        flat = {fx.conv_kernel_name(r, 3, 16): 1,
-                fx.conv_kernel_name(r, 16, 16): 2}
+        blocked["quantize_rows_kernel"] = 4
     ops.reset_launch_counts()
     ops.fused_extractor(tiles, pk)
-    assert ops.kernel_launch_counts() == {**flat, **tail}
+    assert ops.kernel_launch_counts() == flat
     ops.reset_launch_counts()
     ops.fused_extractor(tiles, pk, schedule=at.Schedule(2, 8, True))
-    assert ops.kernel_launch_counts() == {
-        fx.conv_kernel_name(r, 16, 16, 8): 3, **tail}
+    assert ops.kernel_launch_counts() == blocked
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def _quantized(lib, x, stream):
+    """The blocked int8 schedule's view of an fp32 activation: the
+    quantize pass's (words, scales) (``quantize_rows_kernel``)."""
+    q, s = fx._layer_input(lib, x, x.shape[3], fx.INT8, stream)
+    return q.view(x.shape[:3] + (-1,)), s.view(x.shape[:3])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
 @pytest.mark.parametrize("channels", [16, 32, 64])
 @pytest.mark.parametrize("l", [16, 32, 64])
 @pytest.mark.parametrize("b", [1, 5, 32])
 def test_hidden_block_flat_equals_blocked_bitwise(dev, dtype, channels, l,
                                                   b):
     """Each hidden block alone: layer 0 (cin 3) and a C -> C block, the
-    flat kernel (``qr_conv3x3_norm_relu``) bitwise equal to the blocked
-    one (``qr_conv3x3_norm_relu_blocked``) at ct = C and at ct = C / 2
-    with double buffering, on a batch block that leaves b = 5 ragged."""
+    flat kernel (``qr_conv3x3_norm_relu``; int8: ``qr_conv3x3_imma``)
+    bitwise equal to the blocked one (``qr_conv3x3_norm_relu_blocked``)
+    at ct = C and at ct = C / 2 with double buffering, on a batch block
+    that leaves b = 5 ragged.  At int8 in the form the next layer reads:
+    the flat kernel's words and scales against the quantize pass applied
+    to the blocked kernel's fp32 output; and the whole decode, flat
+    against blocked, logits and embedding."""
     pk = _rung_pack(dev, dtype, channels=channels, depth=2, tile=l)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rung = fx.RUNGS[dtype]
     x = torch.as_tensor(np.random.default_rng(b * l + channels).uniform(
         -2.0, 2.5, (b, l, l, 3)).astype(np.float32)).to(dev)
+    xf = x  # the flat schedule's layer input (int8: a QuantAct after 0)
     for layer, blk in enumerate(pk["blocks"]):
-        flat = fx.conv_block(lib, x, blk, rung, stream)
+        flat = fx.conv_block(lib, xf, blk, rung, stream)
         for ct, db in ((channels, False), (channels // 2, True)):
             got = fx.conv_block(lib, x, blk, rung, stream,
                                 blocked=(2, ct, db))
             torch.cuda.synchronize()
-            assert torch.isfinite(flat).all()
-            assert torch.equal(got, flat), (layer, ct)
-        x = flat
+            assert torch.isfinite(got).all()
+            if dtype == "int8":
+                q, s = _quantized(lib, got, stream)
+                torch.cuda.synchronize()
+                assert torch.equal(flat.q, q), (layer, ct)
+                assert torch.equal(flat.s, s), (layer, ct)
+            else:
+                assert torch.equal(got, flat), (layer, ct)
+        xf, x = flat, got
+    if dtype == "int8":
+        tiles = torch.as_tensor(np.random.default_rng(l).uniform(
+            -2.0, 2.5, (b, l, l, 3)).astype(np.float32)).to(dev)
+        want = fx.fused_extractor_cuda(tiles, pk, with_embed=True)
+        got = fx.fused_extractor_blocked_cuda(
+            tiles, pk, batch_block=2, channel_tile=channels // 2,
+            double_buffer=True, with_embed=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
 def test_full_width_rows_do_not_depend_on_batch(dev, dtype):
     """Full width (C 64, D 7, l 64, correlation bank) at b=32: rows 7..19
     decoded alone equal the same rows of the whole batch, logits and

@@ -10,7 +10,10 @@ ulps), and to the kernel's oracle ``fused_tile_preprocess_ref`` within
 host tables (two taps per row) must rebuild the reference's float32
 interpolation matrices exactly, and a float32 emulation of the kernel's
 gather arithmetic must agree with the plain version within the same
-tolerance.
+tolerance; a block-by-block model of the kernel (its launch shape,
+clamped offsets and rows, and its one tables buffer read at the
+kernel's offsets) must write every pixel once and equal that emulation
+bit for bit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import fused_preprocess as fp
+from repro_torch.kernels import fused_tile_preprocess as ftp
 from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(1)
@@ -137,3 +141,64 @@ def test_offsets_clamp_like_dynamic_slice():
         torch.as_tensor(raw), torch.as_tensor(np.clip(bad, 0, 16)),
         resize=40, crop=32, tile=16)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def _tile_kernel_model(raw, offs, resize, crop, tile):
+    """float32 numpy model of ``tile_preprocess_kernel`` block by block:
+    its launch shape (256 // tile rows of one tile a block), the block's
+    clamped offsets and rows, and its (index, weight) pairs read from the
+    one tables buffer of ``ingest_tables`` at the kernel's offsets (row
+    pairs at 0, their weights at 2 crop, column pairs at 4 crop, theirs at
+    6 crop, the affine at 8 crop); each pixel through ``interp_pixel``'s
+    arithmetic."""
+    b, H, W, _ = raw.shape
+    k = offs.shape[1] if offs.ndim == 3 else 1
+    tables = ftp.ingest_tables(H, W, resize, crop, None, None, "cpu").numpy()
+    f32 = np.float32
+    ry_idx, rx_idx = tables[:2 * crop], tables[4 * crop:6 * crop]
+    ry_w, rx_w, aff = (tables[a:z].view(f32) for a, z in (
+        (2 * crop, 4 * crop), (6 * crop, 8 * crop), (8 * crop, 8 * crop + 6)))
+    rows = 256 // tile if tile < 256 else 1
+    groups = -(-tile // rows)
+    flat = offs.reshape(-1, 2)
+    out = np.full((flat.shape[0], tile, tile, 3), np.nan, f32)
+    for block in range(flat.shape[0] * groups):
+        t, r0 = block // groups, (block % groups) * rows
+        nr = min(rows, tile - r0)
+        oy = min(max(int(flat[t, 0]), 0), crop - tile) + r0
+        ox = min(max(int(flat[t, 1]), 0), crop - tile)
+        img = raw[t // k].astype(f32)
+        i, j = np.divmod(np.arange(nr * tile), tile)  # the block's pixels
+        r = 2 * (oy + i)
+        c = 2 * (ox + j)
+        for ch in range(3):
+            def px(rr, cc):
+                return img[ry_idx[rr], rx_idx[cc], ch]
+            wr0, wr1, wc0, wc1 = ry_w[r], ry_w[r + 1], rx_w[c], rx_w[c + 1]
+            v0 = f32(wr0 * px(r, c)) + f32(wr1 * px(r + 1, c))
+            v1 = f32(wr0 * px(r, c + 1)) + f32(wr1 * px(r + 1, c + 1))
+            h = f32(v0 * wc0) + f32(v1 * wc1)
+            out[t, r0 + i, j, ch] = f32(h * aff[ch]) + aff[3 + ch]
+    return out
+
+
+@pytest.mark.parametrize("geom", GEOMS + [(40, 40, 40, 20)])
+def test_tile_kernel_blocks_match_gather_emulation(geom):
+    """The redesigned kernel's index math and tables buffer: every output
+    pixel written once, equal to the gather emulation bit for bit and to
+    the plain version within the tolerance; offsets past either edge
+    clamp; a tile that the block rows do not divide (20 = 12 + 8)."""
+    raw_hw, resize, crop, tile = geom
+    raw, offs = _case(raw_hw, crop, tile, b=2, k=2, seed=3)
+    offs.reshape(-1, 2)[1] = (-5, crop)              # clamped, both edges
+    got = _tile_kernel_model(raw, offs, resize, crop, tile)
+    assert not np.isnan(got).any()
+    np.testing.assert_array_equal(
+        got, _gather_emulation(raw, offs, resize, crop, tile))
+    want = ops.fused_tile_preprocess(torch.as_tensor(raw),
+                                     torch.as_tensor(offs), resize=resize,
+                                     crop=crop, tile=tile).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    tables = ftp.ingest_tables(raw_hw, raw_hw, resize, crop, None, None,
+                               "cpu")
+    assert tables.dtype == torch.int32 and tables.shape == (8 * crop + 6,)

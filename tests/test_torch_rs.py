@@ -285,3 +285,72 @@ def test_lane_shares_sum_to_the_bit_sliced_syndromes(syndrome_case):
     _, share = _lane_syndromes(words, c["EXP"], c["LOG"])
     np.testing.assert_array_equal(np.bitwise_xor.reduce(share, axis=1),
                                   want)
+
+
+# -- integer bits outside {0, 1} ---------------------------------------------
+def _out_of_domain_words(seed: int = 2) -> np.ndarray:
+    """(143, 60) int32 words with entries outside {0, 1}, as many rows as
+    :func:`_words` (JAX compiles one shape): codewords and single-error
+    words with one to four entries set to 2, -1, 3, -2 or 5; random words
+    over [-2, 3]; words with entries at and near the int32 limits (whose
+    symbol sums and GF(16) shifts wrap in the reference's int32
+    arithmetic: -2^31 times a symbol weight of 2, 4 or 8 is 0 there); and
+    {0, 1} words beside them."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for cw in _codewords(rng, 64):
+        w = cw.astype(np.int64)
+        if len(rows) % 2:
+            w = _flip_symbol(w, int(rng.integers(15)), int(rng.integers(16)))
+        for i in rng.choice(60, int(rng.integers(1, 5)), replace=False):
+            w[i] = rng.choice([2, -1, 3, -2, 5])
+        rows.append(w)
+    rows += list(rng.integers(-2, 4, (32, 60)))
+    big = [2 ** 30, 2 ** 29, -2 ** 31, 2 ** 31 - 1, -2 ** 30 - 7]
+    for i in range(32):
+        w = rng.integers(0, 2, 60) if i % 2 else np.zeros(60, np.int64)
+        w[(7 * i) % 60] = -2 ** 31
+        w[(11 * i + 3) % 60] = big[i % 5]
+        rows.append(w)
+    rows += list(_codewords(rng, 15))
+    return np.stack(rows).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def out_of_domain_case():
+    words = _out_of_domain_words()
+    assert words.shape == _words().shape
+    out = jax.jit(jops.rs_decode)(jnp.asarray(words))
+    return words, {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_plain_equals_jax_kernel_outside_01(out_of_domain_case, field):
+    """Entries of 2, -1 and others, down to the int32 limits: the plain
+    version computes the reference's int32 arithmetic (its symbol sums
+    and carry-less products wrap at 32 bits), so every output agrees."""
+    words, ref = out_of_domain_case
+    got = rs.rs_decode_plain(torch.as_tensor(words))
+    np.testing.assert_array_equal(got[field].numpy(), ref[field])
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int16, torch.bool])
+def test_plain_casts_bits_as_the_reference(out_of_domain_case, dtype):
+    """Any integer (or bool) bits are cast to int32 first, as the
+    reference's ``astype(jnp.int32)``: int64 words that wrap to the
+    int32 words decode as those; bool words as their 0/1 values."""
+    words, ref = out_of_domain_case
+    if dtype == torch.bool:
+        src = torch.as_tensor(words != 0)
+        want = rs.rs_decode_plain(src.to(torch.int32))
+    elif dtype == torch.int16:
+        small = np.clip(words, -3, 5)
+        src = torch.as_tensor(small).to(dtype)
+        want = rs.rs_decode_plain(torch.as_tensor(small))
+    else:
+        src = torch.as_tensor(words.astype(np.int64) + (1 << 32) *
+                              np.sign(words.astype(np.int64)))
+        want = {k: torch.as_tensor(v.copy()) for k, v in ref.items()}
+    got = ops.rs_decode(src)
+    for k in FIELDS:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy())

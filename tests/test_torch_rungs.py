@@ -196,6 +196,7 @@ def test_kernel_names_name_instantiated_kernels(dtype):
         names |= {fx.conv_kernel_name(rung, c, c, ct)
                   for ct in fx.blocked_channel_tiles(c)}
         names.add(fx.to_bits_kernel_name(rung, c, 60))
+        names.add(fx.to_bits_kernel_name(rung, c, 60, blocked=True))
     for name in names | {"quantize_rows_kernel"}:
         fn, _, args = name.partition("<")
         decl = re.search(r"template\s*<([^>]*)>\s*__global__ void\s*"
@@ -209,13 +210,51 @@ def test_kernel_names_name_instantiated_kernels(dtype):
         assert len(args) == len(decl.group(1).split(",")), name
         typ = args[0].removeprefix("qr::")
         assert re.search(r"struct " + typ + r"\b", src) or \
-            typ in ("float", "__nv_bfloat16"), name
+            typ in ("float", "__nv_bfloat16") or typ.isdigit(), name
     assert fx.conv_kernel_name(rung, 64, 64) != \
         fx.conv_kernel_name(rung, 64, 64, 64)
     _build.kernel_launches["x"] = 1
     ops.reset_launch_counts()
     assert ops.kernel_launch_counts() == {}
 
+
+# ``ptxas -v`` lines of three kernels as nvcc prints them for sm_90a (one
+# with its own stack frame and spills, one in an anonymous namespace)
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN2qr16conv_imma_kernelILi64ELi64EEEvPKvPKfPK4int2S4_S4_PiPfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN2qr16conv_imma_kernelILi64ELi64EEEvPKvPKfPK4int2S4_S4_PiPfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 118 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN2qr19conv_blocked_kernelINS_3RI8ELi16ELi4EEEvPKvPKfPKNT_1WES5_S5_Pfiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN2qr19conv_blocked_kernelINS_3RI8ELi16ELi4EEEvPKvPKfPKNT_1WES5_S5_Pfiiiii
+    16 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 16 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__730f3e01_12_rs_decode_cu_979a838825rs_syndrome_decode_kernelEPKiPiS2_PbS2_i' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__730f3e01_12_rs_decode_cu_979a838825rs_syndrome_decode_kernelEPKiPiS2_PbS2_i
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 4896 bytes smem
+"""
+
+
+def test_ptxas_log_is_read_per_kernel():
+    """``_build.kernel_registers`` (the registers, spills and stack that
+    ``chip_smoke.py`` checks and the sweep tools print): each kernel's
+    own frame and spills, its cumulative stack, names demangled without
+    their arguments and found by the names the launchers count under."""
+    from repro_torch.kernels import _build
+    regs = _build.kernel_registers(PTXAS_LOG)
+    assert sorted(regs) == [
+        "(anonymous namespace)::rs_syndrome_decode_kernel",
+        "qr::conv_blocked_kernel<qr::RI8, 16, 4>",
+        "qr::conv_imma_kernel<64, 64>"]
+    i8 = fx.RUNGS["int8"]
+    assert _build.registers_of(regs, fx.conv_kernel_name(i8, 64, 64)) == \
+        (118, 0, 0, 0, 0)
+    assert _build.registers_of(regs, fx.conv_kernel_name(i8, 16, 16, 4)) \
+        == (48, 16, 12, 16, 16)
+    assert _build.registers_of(regs, "rs_syndrome_decode_kernel") == \
+        (40, 0, 0, 0, 0)
+    assert _build.registers_of(regs, "conv_") is None  # not one kernel
 
 def test_both_schedules_refuse_the_same_tile_sizes():
     """One pixel-tile rule for both schedules: l a multiple of 16."""

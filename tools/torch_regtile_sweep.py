@@ -36,7 +36,6 @@ Prints one line per variant and writes ``build/regtile_sweep/sweep.json``.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
 import shutil
@@ -56,6 +55,9 @@ SOURCES = ("fused_extractor.cu", "fused_extractor_bf16.cu",
            "fused_extractor_int8.cu")
 TILE_LINE = "constexpr int TM = 8, TN = 8, RSTAGES = 3;"
 UNROLL_LINE = "#pragma unroll 4\n  for (int c4 = 0;"
+ENTRIES = ("qr_conv3x3_norm_relu", "qr_conv3x3_norm_relu_blocked",
+           "qr_conv3x3_gap_corr", "qr_extractor_head",
+           "qr_quantize_rows_int8")
 
 
 def clocks_during(fn, seconds: float = 1.0) -> str:
@@ -106,9 +108,9 @@ def build(variants, parent=None):
     from repro_torch.kernels import _build
     csrc = _build.CSRC
     header = (csrc / "extractor.cuh").read_text()
-    cmds, objs = [], {}
+    dirs = {}
     for v in variants:
-        d = OUT / v
+        d = dirs[v] = OUT / v
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
         src_dir = csrc
@@ -119,49 +121,16 @@ def build(variants, parent=None):
             (d / "extractor.cuh").write_text(variant_header(header, v))
         for src in SOURCES:
             shutil.copy(src_dir / src, d / src)
-            obj = d / (Path(src).stem + ".o")
-            objs.setdefault(v, []).append(obj)
-            cmds.append([_build.nvcc(), *_build.NVCC_FLAGS, "-c",
-                         str(d / src), "-o", str(obj)])
-    logs = _build._run_parallel(cmds)
-    libs = {}
-    for i, v in enumerate(variants):
-        lib = OUT / v / f"libsweep_{v}.so"
-        _build._run_parallel([[_build.nvcc(), "-shared", "-o", str(lib),
-                               *map(str, objs[v])]])
-        libs[v] = (lib, "".join(logs[i * len(SOURCES):
-                                     (i + 1) * len(SOURCES)]))
-    return libs
-
-
-def load(path):
-    from repro_torch.kernels import _build
-    lib = ctypes.CDLL(str(path))
-    for name in ("qr_conv3x3_norm_relu", "qr_conv3x3_norm_relu_blocked",
-                 "qr_conv3x3_gap_corr", "qr_extractor_head",
-                 "qr_quantize_rows_int8"):
-        fn = getattr(lib, name)
-        fn.argtypes = _build.SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.build_variants(dirs)
 
 
 def conv_registers(log: str):
     """(registers, spill bytes) of conv_regtile_kernel<RF32, 64, 64>."""
-    mangled = "conv_regtile_kernelINS_4RF32ELi64ELi64E"
-    name, spill = None, 0
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name and mangled in name:
-            return int(m.group(1)), spill
-    return None, None
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_extractor as fx
+    r = _build.registers_of(_build.kernel_registers(log),
+                            fx.conv_kernel_name(fx.RUNGS["fp32"], 64, 64))
+    return None if r is None else (r[0], r[1] + r[2])
 
 
 def main() -> int:
@@ -185,7 +154,7 @@ def main() -> int:
                                             else [])
     base = _build.library()
     built = build(variants, args.parent)
-    libs = {v: load(p) for v, (p, _) in built.items()}
+    libs = {v: _build.load(p, ENTRIES) for v, (p, _) in built.items()}
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(0)
@@ -232,7 +201,7 @@ def main() -> int:
           f"every variant bitwise equal to the checkout's kernels:")
     for v in variants:
         r = res[v]
-        regs, spill = r["registers"]
+        regs, spill = r["registers"] or (None, None)
         print(f"  {v:<12} fp32 conv {r['fp32']['conv']:.4f} to_bits "
               f"{r['fp32']['to_bits']:.4f} decode {r['fp32']['decode']:.4f}"
               f" | bf16 conv {r['bf16']['conv']:.4f} to_bits "

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Images/s of the port's default serve path, this checkout against
-another one (for example the parent commit), in turns on one CUDA card.
+"""Images/s of the port's serve path, this checkout against another one
+(for example the parent commit), in turns on one CUDA card.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/torch_serve_turns.py --parent DIR [--rounds 1]
+        [--decode-dtype fp32|bf16|int8]
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/parent``).  Each round
@@ -17,7 +18,14 @@ three windows of 102 batches of 32 (the 3 batches of ``chip_smoke.py``'s
 end-to-end phase, 34 times each) and reads images/s per window; then one
 profiled pass over the 3 batches gives the device busy time per batch,
 the idle share (an upper bound: the profiler slows the host) and the
-device time of the RS kernel per batch.
+device time per batch of the RS kernel, of the ingest kernel and of the
+decode's kernels.  Then, alone at b = 32 on the same pipeline's inputs,
+the median call ms (20 calls between CUDA events) of the tile-first
+ingest op and of the flat decode op at ``--decode-dtype`` (default
+fp32, the default path's), and the ingest op's host microseconds a call
+over 200 back-to-back calls.  Each turn also hashes the served results
+(logits, messages, ok, n_corrected of every batch); the run fails unless
+every turn's hash is the same, so the two checkouts serve the same bits.
 
 Prints one JSON line per turn and a last line with every turn, and
 writes ``build/serve_turns/turns.json``.  Imports nothing of JAX.
@@ -25,6 +33,7 @@ writes ``build/serve_turns/turns.json``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -37,20 +46,63 @@ OUT = ROOT / "build" / "serve_turns"
 WINDOWS, REPS = 3, 34
 
 
-def turn(tree: Path) -> dict:
+def host_us(fn, calls: int) -> float:
+    """Host microseconds a call over ``calls`` back-to-back calls, the
+    card synchronised only after them: the wrapper's own cost while the
+    card keeps up with it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def call_ms(fn, iters: int = 20) -> float:
+    """Median ms of one call between CUDA events, after warm-up."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+DECODE_KERNELS = ("conv_", "gap_corr", "head_kernel", "quantize_rows")
+
+
+def turn(tree: Path, dtype: str) -> dict:
     """One turn, in this process, on ``tree``'s package."""
     sys.path.insert(0, str(tree / "src"))
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_lib
     args = serve_lib.parse_args(["--batches", "3", "--batch", "32",
                                  "--img", "256", "--tile", "64",
-                                 "--device", "cuda"])
+                                 "--device", "cuda", "--decode-dtype",
+                                 dtype])
     pipe = serve_lib.build_pipeline(args)
     sample, batches = serve_lib.make_batches(args)
     serve_lib.warm_up(pipe, sample)
     torch.cuda.synchronize()
+    _, results = serve_lib.serve(pipe, batches)
+    digest = hashlib.sha256()
+    for r in results:
+        for k in ("logits", "message_bits", "ok", "n_corrected"):
+            digest.update(np.ascontiguousarray(r[k]).tobytes())
     ips = [serve_lib.serve(pipe, batches * REPS)[0].throughput_ips
            for _ in range(WINDOWS)]
     torch.cuda.synchronize()
@@ -63,26 +115,51 @@ def turn(tree: Path) -> dict:
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    rs_ms = sum(e.self_device_time_total for e in rows
-                if "rs_" in e.key and "decode" in e.key) / 1e3
-    pipe.close()
     n = len(batches)
-    return {"tree": str(tree), "images_per_s": ips,
+
+    def per_batch(match):
+        ms = sum(e.self_device_time_total for e in rows if match(e.key))
+        return ms / 1e3 / n if busy_ms else None
+
+    # the ingest and decode ops alone, at b = 32 on the pipeline's inputs
+    cfg, st = pipe.cfg, pipe.stages
+    raw = st.to_device(batches[0])
+    offs = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.img_size // cfg.tile, (32, 2)).astype(np.int32) * cfg.tile
+    ).to(raw.device)
+    kw = dict(resize=cfg.resize_src, crop=cfg.img_size, tile=cfg.tile)
+    tiles = ops.fused_tile_preprocess(raw, offs, **kw)
+    ingest_ms = call_ms(lambda: ops.fused_tile_preprocess(raw, offs, **kw))
+    ingest_us = host_us(lambda: ops.fused_tile_preprocess(raw, offs, **kw),
+                        200)
+    decode_ms = call_ms(lambda: ops.fused_extractor(tiles, st.packed_params))
+    pipe.close()
+    return {"tree": str(tree), "decode_dtype": dtype,
+            "results_sha256": digest.hexdigest(), "images_per_s": ips,
             "median_images_per_s": statistics.median(ips),
             "device_busy_ms_per_batch": busy_ms / n if busy_ms else None,
             "idle_share_upper_bound": (1 - busy_ms / wall_ms
                                        if busy_ms else None),
-            "rs_device_ms_per_batch": rs_ms / n if busy_ms else None}
+            "rs_device_ms_per_batch": per_batch(
+                lambda k: "rs_" in k and "decode" in k),
+            "ingest_device_ms_per_batch": per_batch(
+                lambda k: "tile_preprocess" in k),
+            "decode_device_ms_per_batch": per_batch(
+                lambda k: any(d in k for d in DECODE_KERNELS)),
+            "ingest_call_ms": ingest_ms, "ingest_host_us": ingest_us,
+            "decode_call_ms": decode_ms}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="the other checkout")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--decode-dtype", default="fp32",
+                    choices=("fp32", "bf16", "int8"))
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn is not None:
-        print(json.dumps(turn(args.turn.resolve())))
+        print(json.dumps(turn(args.turn.resolve(), args.decode_dtype)))
         return 0
     if args.parent is None:
         ap.error("--parent DIR is required")
@@ -100,17 +177,28 @@ def main() -> int:
     for side, tree in order:
         out = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--turn",
-             str(tree)], check=True, capture_output=True, text=True,
-            timeout=900, cwd=tree).stdout.strip().splitlines()[-1]
+             str(tree), "--decode-dtype", args.decode_dtype], check=True,
+            capture_output=True, text=True, timeout=900,
+            cwd=tree).stdout.strip().splitlines()[-1]
         res = {"side": side, **json.loads(out)}
         turns.append(res)
         print(json.dumps(res))
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "turns.json").write_text(json.dumps(
+    (OUT / f"turns_{args.decode_dtype}.json").write_text(json.dumps(
         {"card": card, "turns": turns}, indent=1))
-    print(json.dumps({"card": card, "median_images_per_s": {
-        side: [t["median_images_per_s"] for t in turns if t["side"] == side]
-        for side in ("parent", "change")}}))
+    hashes = {t["results_sha256"] for t in turns}
+    if len(hashes) != 1:
+        print(f"the turns served different results: {hashes}",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"card": card, "decode_dtype": args.decode_dtype,
+                      "same_results": True, **{
+        key: {side: [t[key] for t in turns if t["side"] == side]
+              for side in ("parent", "change")}
+        for key in ("median_images_per_s", "decode_call_ms",
+                    "ingest_call_ms", "ingest_host_us",
+                    "decode_device_ms_per_batch",
+                    "ingest_device_ms_per_batch")}}))
     return 0
 
 
