@@ -17,14 +17,19 @@ In order, it
    the tile-first kernel (staged tiles equal tile-first tiles exactly),
    the blocked decode kernel on every candidate schedule and three
    explicit points against its plain version and, bitwise, against the
-   flat kernel, then an autotune sweep into
+   flat kernel, each ``conv_blocked_kernel`` instantiation alone on the
+   64 -> 64 layer (ms per launch at bb 1, 4 and 8, each launch's blocks
+   as the profiler traced them against SMs, ``ptxas -v`` registers,
+   spills and stack: none at fp32 and bf16),
+   then an autotune sweep into
    ``build/chip_smoke/decode_schedules.json``; then the bf16 and int8
    rungs of both decode kernels at full width (flat at b=32, 1 and a
    ragged 5, blocked on every candidate and the explicit points at
    b=32 and 5, and the serve point at b=1) against their plain
    versions and, bitwise, blocked against flat; call ms of each and the
-   ``ptxas -v`` registers and spills; and an int8 sweep into the same
-   cache under its own key; then the flat fp32 decode's kernels one by
+   ``ptxas -v`` registers and spills, and the blocked instantiations
+   alone as at fp32; and a bf16 and an int8 sweep into the same
+   cache, each under its own key; then the flat fp32 decode's kernels one by
    one at b=32 (layer 0, a 64 -> 64 block, to_bits + GAP + corr, the
    head: ms per launch, bound, registers, spills (none)) beside cuDNN's fp32
    conv2d on the same layer as a yardstick the port never calls, and
@@ -49,15 +54,17 @@ In order, it
    (from the sweep's cache), ``--schedule bb4-ct32-db`` and
    ``--rs-mode cpu_pool``, ``--mode tiled``, ``--mode sequential
    --rs-mode cpu_sync`` (the paper's baseline), ``--mode sequential``,
-   ``--decode-dtype bf16``, ``--decode-dtype int8`` and ``--decode-dtype
-   int8 --schedule auto`` (from the int8 sweep) — checking each one's
+   ``--decode-dtype bf16`` (flat, and blocked at ``bb4-ct32-db``, which
+   must serve the flat bf16 bits), ``--decode-dtype int8`` and
+   ``--decode-dtype int8 --schedule auto`` (from the int8 sweep), the
+   decode's device ms a batch of each profiled one — checking each one's
    launch counts and its results against the default path's (the rungs'
    bits wherever the fp32 logit clears the rungs' margin), and prints
    images/s for each and the ratio of the default path's median window
    to each sequential run; the ``--decode-dtype int8`` run's launches per
    decode kernel, matched to its profiled pass, with no quantize pass;
-   the ingest's and the RS kernel's device ms a launch in the default
-   path's profiled pass;
+   the ingest's, the head's and the RS kernel's device ms a launch and
+   the decode's a batch in the default path's profiled pass;
 6. checks the default and the staged path, and the bf16 and int8 rungs,
    against the JAX package's golden outputs
    (``tests/data/torch_port_golden.npz``);
@@ -168,6 +175,32 @@ def call_ms(fn, iters: int = 20, reps: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def traced_grids(launch, name: str) -> list:
+    """Run ``launch`` once under ``torch.profiler`` and export the trace
+    to build/chip_smoke/<name>_trace.json; return (kernel name with its
+    spaces removed, blocks in its grid) of each device kernel it ran, in
+    launch order, read from the trace's kernel events (empty where the
+    profiler saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):  # the primer of profile_path
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        launch()
+        torch.cuda.synchronize()
+    path = OUT / f"{name}_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                     if e.get("cat") == "kernel" and "grid" in e.get(
+                         "args", {}) and "spin_kernel" not in e["name"]),
+                    key=lambda e: e["ts"])
+    return [(e["name"].replace(" ", ""),
+             int(np.prod(e["args"]["grid"]))) for e in events]
 
 
 def timings(kernel_fn, plain_fn, plain_iters: int = 20) -> dict:
@@ -352,13 +385,85 @@ SERVE_SCHEDULE = "bb4-ct32-db"   # the explicit blocked point the serve
 # explicit points outside the sweep: narrower channel tiles and a batch
 # block that leaves ragged blocks at b=32
 EXTRA_SCHEDULES = ("bb2-ct16", "bb3-ct8-db", "bb1-ct4")
+BLOCKED_BBS = (1, 4, 8)  # batch blocks of the per-instantiation table
 
 
-def phase_blocked(dev, rng, card: str):
+def blocked_kernels(dev, rng, card: str, regs: dict, dtype: str) -> dict:
+    """Each ``conv_blocked_kernel`` instantiation at full width and the
+    rung ``dtype``, on the decode's 64 -> 64 layer at b=32 (its input the
+    blocked layer 0's output): ms per launch (``call_ms`` over 10
+    back-to-back launches) at bb 1, 4 and 8 with db on, the blocks of
+    each launch's grid as the profiler traced it, against the card's
+    SMs, and the ``ptxas -v`` registers, spill bytes and stack bytes;
+    layer 0 (cin 3) at bb 4, ct 0.  At int8 a launch includes its
+    quantize pass.  Fails on any spill or stack at fp32 or bf16, and
+    there on a traced grid of fewer blocks than SMs."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_extractor as fx
+    l, b, C = FULL["tile"], 32, WIDTH["channels"]
+    rung = fx.RUNGS[dtype]
+    pk = rung_pack(dev, dtype)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tiles = torch.as_tensor(rng.uniform(-2.0, 2.5, (b, l, l, 3)).astype(
+        np.float32)).to(dev)
+    blk0, blk1 = pk["blocks"][0], pk["blocks"][1]
+    x1 = fx.conv_block(lib, tiles, blk0, rung, stream, blocked=(4, C, True))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cts = sorted(fx.blocked_channel_tiles(C), reverse=True)
+
+    def launch(bb, ct):
+        return fx.conv_block(lib, x1, blk1, rung, stream,
+                             blocked=(bb, ct, True))
+
+    traced = traced_grids(lambda: [launch(bb, ct) for ct in cts
+                                   for bb in BLOCKED_BBS],
+                          f"{dtype}_blocked_grids")
+    rows = []
+    for ct in cts:
+        kernel = fx.conv_kernel_name(rung, C, C, ct)
+        r = _build.registers_of(regs, kernel)
+        check(r is not None, f"{kernel}: no ptxas -v line")
+        check(dtype == "int8" or r[1] == r[2] == r[3] == r[4] == 0,
+              f"{kernel}: ptxas -v shows spills or stack: {r}")
+        grids = [g for k, g in traced if kernel in k]
+        blocks = dict(zip(BLOCKED_BBS, grids)) \
+            if len(grids) == len(BLOCKED_BBS) else None
+        check(dtype == "int8" or blocks is None or
+              min(blocks.values()) >= sms,
+              f"{kernel}: a traced grid below {sms} blocks: {blocks}")
+        rows.append(dict(
+            kernel=kernel, ct=ct, registers=r[0], spill_bytes=r[1] + r[2],
+            stack_bytes=r[3] + r[4],
+            ms_by_bb={bb: call_ms(lambda: launch(bb, ct), reps=10)
+                      for bb in BLOCKED_BBS},
+            blocks_by_bb=blocks))
+    layer0_ms = call_ms(lambda: fx.conv_block(
+        lib, tiles, blk0, rung, stream, blocked=(4, C, True)), reps=10)
+    print(f"  {dtype} conv_blocked_kernel instantiations, {C} -> {C} at "
+          f"b=32 (ms per launch at bb {'/'.join(map(str, BLOCKED_BBS))}, "
+          f"db; traced blocks at those bb on {sms} SMs; registers / spill "
+          f"bytes / stack bytes)"
+          f"{' with the quantize pass' if dtype == 'int8' else ''}"
+          f", on {card}:")
+    for r in rows:
+        blocks = "not measured" if r["blocks_by_bb"] is None else \
+            " / ".join(str(r["blocks_by_bb"][bb]) for bb in BLOCKED_BBS)
+        print(f"    {r['kernel']}: "
+              + " / ".join(f"{r['ms_by_bb'][bb]:.4f}" for bb in BLOCKED_BBS)
+              + f" ms; blocks {blocks}; {r['registers']} / "
+                f"{r['spill_bytes']} / {r['stack_bytes']}")
+    print(f"    layer 0 (3 -> {C}) at bb4-ct0: {layer0_ms:.4f} ms")
+    return dict(sms=sms, kernels=rows, layer0_bb4_ct0_ms=layer0_ms)
+
+
+def phase_blocked(dev, rng, card: str, regs: dict):
     """Every candidate schedule (and the extra points) at b=32 and a
     ragged b=5: the blocked kernel against its plain version on the same
     tiles (logits and embedding within the logit tolerance) and bitwise
-    against the flat kernel; call ms of each at b=32."""
+    against the flat kernel; call ms of each at b=32; each blocked
+    conv instantiation alone (:func:`blocked_kernels`)."""
     import torch
     from repro_torch.core.extractor import (init_extractor_numpy,
                                             pack_params, params_from_numpy)
@@ -408,6 +513,7 @@ def phase_blocked(dev, rng, card: str):
           f"b=32 on {card}:")
     for name, ms in sorted(sched_ms.items(), key=lambda kv: kv[1]):
         print(f"  {name:<14} {ms:.4f} ms")
+    instantiations = blocked_kernels(dev, rng, card, regs, "fp32")
     sc = at.Schedule.from_string(SERVE_SCHEDULE)
     kw = dict(batch_block=sc.batch_block, channel_tile=sc.channel_tile,
               double_buffer=sc.double_buffer)
@@ -438,7 +544,7 @@ def phase_blocked(dev, rng, card: str):
           f"auto resolves to it from the cache")
     return dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by,
                 library_ms=None, schedules_ms=sched_ms, winner=name,
-                **times), cache, winner
+                instantiations=instantiations, **times), cache, winner
 
 
 # -- phase 3f: the bf16 and int8 rungs of both decode kernels --------------
@@ -475,8 +581,9 @@ def phase_rungs(dev, rng, card: str, cache, regs: dict):
     and bitwise against flat on every candidate and the explicit points
     at b=32 and 5, the serve point also at b=1; call ms (median of 20)
     of every schedule at b=32, the plain versions' ms, the bounds at the
-    rung's peak.  Then an int8 autotune sweep into the same cache,
-    under the int8 key, and "auto" at int8 resolving from it."""
+    rung's peak.  Then a bf16 and an int8 autotune sweep into the same
+    cache, each under its own key, and "auto" at each resolving from
+    it."""
     import torch
     from repro_torch.kernels import autotune as at
     from repro_torch.kernels import fused_extractor as fx
@@ -559,27 +666,32 @@ def phase_rungs(dev, rng, card: str, cache, regs: dict):
             f"{k.replace('qr::', '').replace('void ', '')} {v[0]}/{v[1]}/"
             f"{v[2]}" for k, v in sorted(mine.items())))
         r["registers"] = mine
-    pk8 = rung_pack(dev, "int8")
-    winner = at.autotune(pk8, tile=l, batch=32, dtype="int8",
-                         cache_path=cache, iters=5, warmup=2)
+        r["fused_extractor_blocked"]["instantiations"] = blocked_kernels(
+            dev, rng, card, regs, dtype)
+    winners = {dtype: at.autotune(rung_pack(dev, dtype), tile=l, batch=32,
+                                  dtype=dtype, cache_path=cache, iters=5,
+                                  warmup=2) for dtype in RUNGS}
     entries = at.load_cache(cache)["entries"]
-    check(sorted(k.split("|")[1] for k in entries) == ["fp32", "int8"],
-          f"the cache should hold an fp32 and an int8 entry: {list(entries)}")
-    hint = io.StringIO()
-    with contextlib.redirect_stderr(hint):
-        got = at.resolve_schedule("auto", dtype="int8", tile=l,
-                                  channels=WIDTH["channels"],
-                                  depth=WIDTH["depth"],
-                                  n_bits=WIDTH["n_bits"], cache_path=cache,
-                                  device=dev)
-    check(hint.getvalue() == "" and got == winner,
-          f"int8 auto did not resolve from the cache: {got} / "
-          f"{hint.getvalue()}")
-    name = "flat" if winner is None else winner.to_string()
-    print(f"autotune int8: winner {name}, its own entry beside fp32's in "
-          f"{cache.relative_to(ROOT)}; auto at int8 resolves to it")
-    out["int8"]["winner"] = name
-    return out, winner
+    check(sorted(k.split("|")[1] for k in entries) == ["bf16", "fp32",
+                                                       "int8"],
+          f"the cache should hold an entry a rung: {list(entries)}")
+    for dtype, winner in winners.items():
+        hint = io.StringIO()
+        with contextlib.redirect_stderr(hint):
+            got = at.resolve_schedule("auto", dtype=dtype, tile=l,
+                                      channels=WIDTH["channels"],
+                                      depth=WIDTH["depth"],
+                                      n_bits=WIDTH["n_bits"],
+                                      cache_path=cache, device=dev)
+        check(hint.getvalue() == "" and got == winner,
+              f"{dtype} auto did not resolve from the cache: {got} / "
+              f"{hint.getvalue()}")
+        name = "flat" if winner is None else winner.to_string()
+        print(f"autotune {dtype}: winner {name}, its own entry beside "
+              f"fp32's in {cache.relative_to(ROOT)}; auto at {dtype} "
+              f"resolves to it")
+        out[dtype]["winner"] = name
+    return out, winners["int8"]
 
 
 # -- phase 3g: the flat decode's kernels one by one, fp32 and int8 --------
@@ -1074,6 +1186,16 @@ def profile_path(pipe, batches, card: str, name: str = "serve"):
             for e in rows}
 
 
+def decode_device_ms(traced, n_batches: int):
+    """Device ms a batch of the decode's CUDA kernels (convs, to_bits,
+    head, quantize pass) in a profiled pass, or None where none was
+    traced (the plain decode launches none of them)."""
+    from repro_torch.kernels.fused_extractor import is_decode_kernel
+    hits = [ms for k, (_, ms) in (traced or {}).items()
+            if is_decode_kernel(k)]
+    return sum(hits) / n_batches if hits else None
+
+
 # -- phase 5: the other configurations through the serve launcher ---------
 def serve_config(flags, batches, card: str, profile: str = ""):
     """Build the launcher's pipeline for ``flags`` at full width, warm it
@@ -1147,6 +1269,10 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
         ("bf16", ["--decode-dtype", "bf16"],
          dict(fused_tile_preprocess=n, fused_extractor=n, rs_decode=n),
          "rung"),
+        ("bf16-blocked", ["--decode-dtype", "bf16", "--schedule",
+                          SERVE_SCHEDULE],
+         dict(fused_tile_preprocess=n, fused_extractor_blocked=n,
+              rs_decode=n), "rung"),
         ("int8", ["--decode-dtype", "int8"],
          dict(fused_tile_preprocess=n, fused_extractor=n, rs_decode=n),
          "rung"),
@@ -1160,7 +1286,8 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
         rep, results, counts, kernel_counts, traced = serve_config(
             flags, batches, card,
             profile=name if name in ("staged", "blocked",
-                                     "sequential-device", "bf16", "int8",
+                                     "sequential-device", "bf16",
+                                     "bf16-blocked", "int8",
                                      "int8-auto") else "")
         if name == "int8":
             check_part_launches(parts8, kernel_counts, traced, n,
@@ -1195,14 +1322,21 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
                     check(np.array_equal(r[k][rows], d[k][rows]),
                           f"{name}: {k} differs from the fp32 path on a "
                           f"margined row")
-        if name == "int8-auto":
-            for r, f in zip(results, out["int8"]["results"]):
+        # a blocked schedule serves its rung's flat bits
+        flat_of = {"int8-auto": "int8", "bf16-blocked": "bf16"}.get(name)
+        if flat_of:
+            for r, f in zip(results, out[flat_of]["results"]):
                 for k in ("logits", "message_bits", "ok", "n_corrected"):
                     check(np.array_equal(r[k], f[k]),
-                          f"int8-auto: {k} differs from int8 on the flat "
+                          f"{name}: {k} differs from {flat_of} on the flat "
                           f"schedule")
         out[name] = dict(images_per_s=rep.throughput_ips, launches=counts,
-                         flags=flags)
+                         flags=flags,
+                         decode_device_ms=decode_device_ms(traced, n))
+        if out[name]["decode_device_ms"] is not None:
+            print(f"  {name}: the decode's kernels take "
+                  f"{out[name]['decode_device_ms']:.4f} ms of device time "
+                  f"a batch in the profiled pass, on {card}")
         if relation == "rung":
             dev_ = max(float(np.abs(r["logits"] - d["logits"]).max())
                        for r, d in zip(results, default_results))
@@ -1213,7 +1347,7 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
                   f"equal to fp32's on the {int(sure.sum())} of "
                   f"{sure.size} with |fp32 logit| > {RUNG_MARGIN}; "
                   f"{int(sure.all(axis=1).sum())} rows margined whole")
-    for name in ("bf16", "int8", "int8-auto"):
+    for name in ("bf16", "bf16-blocked", "int8", "int8-auto"):
         del out[name]["results"]
     for name in ("sequential", "sequential-device"):
         ips = out[name]["images_per_s"]
@@ -1319,7 +1453,7 @@ def main() -> int:
               "rs_decode": phase_rs(dev, rng, card, regs),
               "fused_preprocess": phase_preprocess(dev, rng)}
     phases["fused_extractor_blocked"], cache, winner = phase_blocked(
-        dev, rng, card)
+        dev, rng, card, regs)
     rungs, winner8 = phase_rungs(dev, rng, card, cache, regs)
     parts, cudnn_ms = phase_decode_parts(dev, rng, card, regs)
     phases["fused_extractor"].update(parts=parts,
@@ -1336,6 +1470,15 @@ def main() -> int:
     traced = profile_path(pipe, batches, card)
     check_part_launches(parts, kernel_counts, traced, len(batches))
     # the ingest's and RS's device ms a launch in that pass
+    head = parts[3]
+    hits = [v for k, v in (traced or {}).items()
+            if f"::{head['kernel']}(" in k]
+    head["serve_device_ms"] = hits[0][1] / hits[0][0] if hits else None
+    phases["fused_extractor"]["serve_device_ms"] = decode_device_ms(
+        traced, len(batches))
+    print(f"{head['kernel']}: {head['serve_device_ms']} ms of device time a "
+          f"launch, the decode {phases['fused_extractor']['serve_device_ms']}"
+          f" ms a batch, in the default path's profiled pass, on {card}")
     for name, kernel in (("fused_tile_preprocess", "tile_preprocess_kernel"),
                          ("rs_decode", RS_KERNEL)):
         hits = [v for k, v in (traced or {}).items() if f"::{kernel}(" in k]
@@ -1381,7 +1524,8 @@ def main() -> int:
             "bf16": configs["bf16"]["launches"]["fused_extractor"],
             "int8": configs["int8"]["launches"]["fused_extractor"]},
         "fused_extractor_blocked": {
-            "bf16": None,
+            "bf16": configs["bf16-blocked"]["launches"][
+                "fused_extractor_blocked"],
             "int8": configs["int8-auto"]["launches"][
                 "fused_extractor_blocked"]}}
     kernels = []
@@ -1400,8 +1544,13 @@ def main() -> int:
                 "kernel", "device_ms", "serve_device_ms", "registers",
                 "stack_bytes", "cumulative_stack_bytes", "spill_bytes",
                 "large_b")})
-        if name == "fused_tile_preprocess":
+        if name in ("fused_tile_preprocess", "fused_extractor"):
             entry["serve_device_ms"] = phases[name]["serve_device_ms"]
+        if name == "fused_extractor_blocked":
+            # each blocked conv instantiation alone, and the decode's
+            # device ms a batch on the serve schedule's profiled pass
+            entry["instantiations"] = phases[name]["instantiations"]
+            entry["serve_device_ms"] = configs["blocked"]["decode_device_ms"]
         if name in rung_launches:
             entry["rungs"] = ["fp32", *RUNGS]
             entry["by_rung"] = {dt: {"launches": rung_launches[name][dt],
@@ -1413,6 +1562,17 @@ def main() -> int:
                 entry["by_rung"]["int8"].update(
                     {k: rungs["int8"][name][k] for k in (
                         "parts", "int_mm_yardstick_ms", "imma_sass")})
+                for dt in RUNGS:
+                    entry["by_rung"][dt]["serve_device_ms"] = \
+                        configs[dt]["decode_device_ms"]
+            else:
+                for dt, cfg in (("bf16", "bf16-blocked"),
+                                ("int8", "int8-auto")):
+                    entry["by_rung"][dt].update(
+                        instantiations=rungs[dt][name]["instantiations"],
+                        serve_device_ms=(configs[cfg]["decode_device_ms"]
+                                         if rung_launches[name][dt]
+                                         else None))
         kernels.append(entry)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phases": phases,

@@ -33,7 +33,7 @@
 // kernel here, which is what keeps the flat and the blocked schedules
 // bitwise equal and a row's logits independent of its batch: for each
 // output (pixel, column) and each tap, a fresh partial over the input
-// channels in order (`tap_fold`'s chain: 0, then fmaf over ci; int8: the
+// channels in order (`rt_tap`'s chain: 0, then fmaf over ci; int8: the
 // exact dot, dequantized), folded into the accumulator over the taps in
 // [ky, kx] order with __fadd_rn; then `norm_relu` (bias, channel_norm with
 // sums in channel order, ReLU) or, for to_bits, (y + bias) summed per 8x16
@@ -110,29 +110,57 @@
 // Blocked schedule, `conv_blocked_kernel`: the same forward re-blocked by
 // a schedule (batch block bb, output-channel tile ct, double_buffer) whose
 // output is bitwise the flat kernels' at every rung.  On the TPU the
-// schedule sizes VMEM scratch and grid steps; here it sizes what a block
-// stages in shared memory.  A block owns a 16x16 pixel tile (256 threads,
-// one per pixel) of bb images in turn.  For each output-channel tile
-// [j0, j0 + ct) it stages the weight slice of ALL nine taps once and reuses
-// it for the bb images, and runs the nine taps of an image without a
-// barrier.  With ct < C the (pixel, C) pre-norm result lands in the output
-// buffer, tile by tile, as the reference's (M, C) accumulator scratch, and
-// the epilogue then reads all C channels of the thread's own pixel back; a
-// thread reads only what it wrote, so no barrier is needed.  Fewer
-// channels per pass means fewer registers per thread.  `db` (with ct < C)
-// double-buffers the weight slices: the next channel tile's slice is
-// fetched with cp.async while the current one computes (the int8 rung
-// stages synchronously, so there db only changes the order of the
-// staging).  A ragged batch (bb not dividing b) masks the missing images
-// of the last block: the reference computes zero pad rows and slices them
-// off, which leaves the real rows the same.  Bitwise equality with the
-// flat kernels: every output channel goes through the same chain on the
-// same staged values (bf16: rounded the same way) and the epilogue is the
-// same `norm_relu`.  The int8 rung keeps it at every channel tile too (the
-// reference is only ulp-close there): its dot is exact and its dequantize
-// is per column.  The to_bits conv, GAP, correlation and head run the flat
-// schedule's kernels (n_bits is always one full-width tile, as in the
-// reference), at int8 `conv_gap_corr_kernel<RI8>` after the quantize pass.
+// schedule sizes VMEM scratch and grid steps; here it sets how often a
+// block stages a weight slice and which images share it.  The to_bits
+// conv, GAP, correlation and head run the flat schedule's kernels (n_bits
+// is always one full-width tile, as in the reference), at int8
+// `conv_gap_corr_kernel<RI8>` after the quantize pass.
+//
+// fp32 and bf16 (`conv_blocked_rt`) run the flat kernels' register-tiled
+// engine: `rt_tap` on a halo of pitch rt_pitch(cin), rounded to bf16 in
+// place, so every output goes through the flat kernels' chain on the same
+// staged values and blocked == flat holds by construction.  The first
+// design (one thread a pixel with acc[ct], each input channel one shared
+// load of the activation and ct / 4 of weights) held the flat kernel at 20
+// % of the FFMA peak, spilled at every ct < C, and put one 16x16 tile of bb
+// images on a block: 64 blocks on 132 SMs at bb 8, b 32.  Now:
+//   * a block computes four 8x8 pixel slots at a time (256 pixels, as the
+//     flat kernel's tile); a thread owns one slot row of BTM = 8 pixels x
+//     8 columns at ct = 64, x 4 at ct <= 32 (so ct 32 still runs 8 warps),
+//     32 * ct / 8 or 32 * ct / 4 threads;
+//   * bb picks the (image, 8x8 subtile) pairs that fill the slots, round
+//     after round: bb >= 4, one 8x8 subtile of bb images, four a round;
+//     bb 2-3, an 8x16 region of bb images, two a round; bb 1, a 16x16
+//     region of one image.  The grid, ceil(b / bb) * (l / 8)^2 / (subtiles
+//     a region), is 512 blocks at b = 32, l = 64 for bb 1, 2 and 4, and
+//     256 at bb 8;
+//   * for each output-channel tile [jt * ct, (jt + 1) * ct) a block stages
+//     the weight slice of all nine taps once with cp.async and reuses it
+//     for every round of its bb images, where it fits beside the halo
+//     (bf16 at ct = C, fp32 at ct <= 32; at C <= 32 and layer 0 always).
+//     fp32 at ct = C = 64 (147 KB of weights beside a 109 KB halo) streams
+//     the taps through the flat kernel's three-slot ring (`rt_ring`) every
+//     round, so bb there buys nothing but grid shape.  `db` (ct < C)
+//     prefetches the next channel tile's slice with cp.async during the
+//     current tile's last round, each tap once every thread is done with
+//     the one it replaces;
+//   * with ct = C the epilogue is the flat kernel's (the pre-norm tile
+//     staged in shared memory, `norm_relu` one thread a pixel, a coalesced
+//     write); with ct < C each pass writes its pre-norm columns to the
+//     output buffer, as the reference's (M, C) accumulator scratch (the
+//     halo stays resident across passes when there is one round), and
+//     after the last pass the block normalises its pixels there.
+// A ragged batch (bb not dividing b) leaves slots of the last block idle:
+// the reference computes zero pad rows and slices them off, which leaves
+// the real rows the same.
+//
+// int8 (`conv_blocked_i8`) keeps the first design: a 16x16 pixel tile (256
+// threads, one a pixel) of bb images in turn; per channel tile the slice of
+// all nine taps is staged once (synchronously, as four-channel words, so
+// db only changes the order of the staging) and the nine taps of an image
+// run `tap_fold`'s __dp4a chain without a barrier.  It stays bitwise the
+// flat int8 kernels at every channel tile (the reference is only ulp-close
+// there): its dot is exact and its dequantize is per column.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -209,21 +237,21 @@ __host__ __device__ __forceinline__ int halo_words(int cin) {
 // also the tile of the GAP and correlation partials at every rung.
 constexpr int TH = 8, TW = 16, NPIX = TH * TW;
 constexpr int HWD = TW + 2, NHALO = (TH + 2) * HWD;
-constexpr int BTH = 16, BTW = 16, BNPIX = BTH * BTW;  // blocked
+constexpr int BTH = 16, BTW = 16, BNPIX = BTH * BTW;  // int8 blocked
 constexpr int BHWD = BTW + 2, BNHALO = (BTH + 2) * BHWD;
 
-// The layer input for the (PH + 2) x (PW + 2) halo of the PH x PW pixel
+// The int8 kernels of the first design (blocked conv, blocked to_bits):
+// the layer input for the (PH + 2) x (PW + 2) halo of the PH x PW pixel
 // tile at (y0, x0) of image img, zero outside the image:
-// s_in[k * NH + p] = element k of halo pixel p.  fp32 / bf16: x is the
-// (b, l, l, cin) fp32 activation (rounded to bf16 for the bf16 rung).
-// int8: x holds the quantized words (b, l, l, cw), xs the per-pixel
-// scales, which land in s_sc[p].
+// s_in[k * NH + p] = word k of halo pixel p.  x holds the quantized words
+// (b, l, l, cw), xs the per-pixel scales, which land in s_sc[p].
 template <class R, int PH, int PW>
 __device__ __forceinline__ void load_halo(const void* __restrict__ xv,
                                           const float* __restrict__ xs,
                                           typename R::X* s_in, float* s_sc,
                                           long long img, int y0, int x0,
                                           int l, int cin) {
+  static_assert(std::is_same<R, RI8>::value, "fp32 / bf16: rt_load_halo");
   using X = typename R::X;
   constexpr int HW_ = PW + 2, NH = (PH + 2) * (PW + 2);
   const int cw = halo_words<R>(cin);
@@ -234,111 +262,81 @@ __device__ __forceinline__ void load_halo(const void* __restrict__ xv,
     X v = 0;
     if (gy >= 0 && gy < l && gx >= 0 && gx < l)
       v = xi[((long long)gy * l + gx) * cw + k];
-    if constexpr (std::is_same<R, RBF16>::value)
-      v = round_to<__nv_bfloat16>(v);
     s_in[k * NH + p] = v;
   }
-  if constexpr (std::is_same<R, RI8>::value) {
-    const float* si = xs + img * l * l;
-    for (int p = threadIdx.x; p < NH; p += blockDim.x) {
-      const int gy = y0 + p / HW_ - 1, gx = x0 + p % HW_ - 1;
-      // a padding row: amax 0, so the reference's scale, and q = 0
-      s_sc[p] = (gy >= 0 && gy < l && gx >= 0 && gx < l)
-                    ? si[(long long)gy * l + gx]
-                    : __fmul_rn(kQEps, kInvQmax);
-    }
+  const float* si = xs + img * l * l;
+  for (int p = threadIdx.x; p < NH; p += blockDim.x) {
+    const int gy = y0 + p / HW_ - 1, gx = x0 + p % HW_ - 1;
+    // a padding row: amax 0, so the reference's scale, and q = 0
+    s_sc[p] = (gy >= 0 && gy < l && gx >= 0 && gx < l)
+                  ? si[(long long)gy * l + gx]
+                  : __fmul_rn(kQEps, kInvQmax);
   }
 }
 
-// Weight staging: taps [tap0, tap0 + ntaps), output columns
+// int8 weight staging: taps [tap0, tap0 + ntaps), output columns
 // [col0, col0 + ncols) of the packed (9 * cin, cout) weight w ->
-// s_w[((tap - tap0) * cw + k) * ncols + c].  int8 packs the four input
-// channels 4k..4k+3 of a column into one word (zero past cin).
+// s_w[((tap - tap0) * cw + k) * ncols + c], the four input channels
+// 4k..4k+3 of a column in one word (zero past cin).
 template <class R>
 __device__ __forceinline__ void stage_slice(const typename R::W* __restrict__ w,
                                             typename R::SW* s_w, int cin,
                                             int cout, int tap0, int ntaps,
                                             int col0, int ncols) {
+  static_assert(std::is_same<R, RI8>::value, "fp32 / bf16: stage_rows");
   const int cw = halo_words<R>(cin);
   for (int e = threadIdx.x; e < ntaps * cw * ncols; e += blockDim.x) {
     const int c = e % ncols, r = e / ncols;
-    if constexpr (std::is_same<R, RI8>::value) {
-      const long long row = (long long)(tap0 + r / cw) * cin;
-      const int k = r % cw;
-      unsigned word = 0;
+    const long long row = (long long)(tap0 + r / cw) * cin;
+    const int k = r % cw;
+    unsigned word = 0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ci = 4 * k + j;
-        if (ci < cin)
-          word |= (unsigned)(uint8_t)w[(row + ci) * cout + col0 + c]
-                  << (8 * j);
-      }
-      s_w[e] = (int)word;
-    } else {  // one halo element per input channel: row tap0 * cin + r
-      s_w[e] = w[((long long)tap0 * cin + r) * cout + col0 + c];
+    for (int j = 0; j < 4; ++j) {
+      const int ci = 4 * k + j;
+      if (ci < cin)
+        word |= (unsigned)(uint8_t)w[(row + ci) * cout + col0 + c]
+                << (8 * j);
     }
+    s_w[e] = (int)word;
   }
 }
 
-// THE tap primitive of every rung, shared by the flat and the blocked
-// kernel: one tap's dot for N output channels at this thread's pixel,
-// folded left into acc ([ky, kx] order; tap 0 starts the sum).
-//   sp     the pixel's element 0 in the halo, planes nh apart;
+// The int8 tap primitive of the first design (the blocked conv and
+// to_bits kernels): one tap's dot for N output channels at this thread's
+// pixel, dequantized and folded left into acc ([ky, kx] order; tap 0
+// starts the sum), the chain of the int8 tensor-core kernels.
+//   sp     the pixel's word 0 in the halo, planes nh apart;
 //   wt     the tap's staged weights, (cw, N);
-//   sx     int8: the input pixel's scale; s_scale: the N column scales.
+//   sx     the input pixel's scale; s_scale: the N column scales.
 template <class R, int N>
 __device__ __forceinline__ void tap_fold(const typename R::X* sp, int nh,
                                          const typename R::SW* wt, int cw,
                                          float sx, const float* s_scale,
                                          int tap, float (&acc)[N]) {
+  static_assert(std::is_same<R, RI8>::value, "fp32 / bf16: rt_tap");
   static_assert(N % 4 == 0, "output channels come in fours");
-  if constexpr (std::is_same<R, RI8>::value) {
-    int part[N];
+  int part[N];
 #pragma unroll
-    for (int co = 0; co < N; ++co) part[co] = 0;
+  for (int co = 0; co < N; ++co) part[co] = 0;
 #pragma unroll 2
-    for (int k = 0; k < cw; ++k) {
-      const int xv = sp[k * nh];
-      const int4* w4 = reinterpret_cast<const int4*>(wt + k * N);
+  for (int k = 0; k < cw; ++k) {
+    const int xv = sp[k * nh];
+    const int4* w4 = reinterpret_cast<const int4*>(wt + k * N);
 #pragma unroll
-      for (int q = 0; q < N / 4; ++q) {
-        const int4 wv = w4[q];
-        part[4 * q + 0] = __dp4a(xv, wv.x, part[4 * q + 0]);
-        part[4 * q + 1] = __dp4a(xv, wv.y, part[4 * q + 1]);
-        part[4 * q + 2] = __dp4a(xv, wv.z, part[4 * q + 2]);
-        part[4 * q + 3] = __dp4a(xv, wv.w, part[4 * q + 3]);
-      }
+    for (int q = 0; q < N / 4; ++q) {
+      const int4 wv = w4[q];
+      part[4 * q + 0] = __dp4a(xv, wv.x, part[4 * q + 0]);
+      part[4 * q + 1] = __dp4a(xv, wv.y, part[4 * q + 1]);
+      part[4 * q + 2] = __dp4a(xv, wv.z, part[4 * q + 2]);
+      part[4 * q + 3] = __dp4a(xv, wv.w, part[4 * q + 3]);
     }
-    // |part| < 2^24 (at most cin * 127^2), so the conversion is exact
+  }
+  // |part| < 2^24 (at most cin * 127^2), so the conversion is exact
 #pragma unroll
-    for (int co = 0; co < N; ++co) {
-      const float d =
-          __fmul_rn(__fmul_rn(__int2float_rn(part[co]), sx), s_scale[co]);
-      acc[co] = tap == 0 ? d : __fadd_rn(acc[co], d);
-    }
-  } else {
-    float part[N];
-#pragma unroll
-    for (int co = 0; co < N; ++co) part[co] = 0.f;
-#pragma unroll 2
-    for (int ci = 0; ci < cw; ++ci) {
-      const float xv = sp[ci * nh];
-#pragma unroll
-      for (int q = 0; q < N / 4; ++q) {
-        const float4 wv = load_w4(wt + ci * N + 4 * q);
-        part[4 * q + 0] = fmaf(xv, wv.x, part[4 * q + 0]);
-        part[4 * q + 1] = fmaf(xv, wv.y, part[4 * q + 1]);
-        part[4 * q + 2] = fmaf(xv, wv.z, part[4 * q + 2]);
-        part[4 * q + 3] = fmaf(xv, wv.w, part[4 * q + 3]);
-      }
-    }
-    if (tap == 0) {
-#pragma unroll
-      for (int co = 0; co < N; ++co) acc[co] = part[co];
-    } else {
-#pragma unroll
-      for (int co = 0; co < N; ++co) acc[co] = __fadd_rn(acc[co], part[co]);
-    }
+  for (int co = 0; co < N; ++co) {
+    const float d =
+        __fmul_rn(__fmul_rn(__int2float_rn(part[co]), sx), s_scale[co]);
+    acc[co] = tap == 0 ? d : __fadd_rn(acc[co], d);
   }
 }
 
@@ -501,7 +499,7 @@ conv_gap_corr_kernel(const void* __restrict__ x, const float* __restrict__ xs,
   }
 }
 
-// ---- blocked schedule ----------------------------------------------------
+// ---- cp.async ------------------------------------------------------------
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -520,74 +518,38 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Weight slice of channel tile jt, all nine taps, into s_w (see
-// stage_slice for the layout).  fp32 / bf16 copy rows of CT weights in
-// 16-byte chunks (8 bytes for a bf16 row of 4), with cp.async when
-// `async`; int8 re-lays the bytes into words, synchronously.
-template <class R, int COUT, int CT>
-__device__ __forceinline__ void stage_tile(const typename R::W* __restrict__ w,
-                                           typename R::SW* s_w, int cin,
-                                           int jt, bool async) {
-  if constexpr (std::is_same<R, RI8>::value) {
-    stage_slice<R>(w, s_w, cin, COUT, 0, 9, jt * CT, CT);
-  } else {
-    using W = typename R::W;
-    constexpr int ROW = CT * (int)sizeof(W);
-    constexpr int CHUNK = ROW < 16 ? ROW : 16;
-    constexpr int E = CHUNK / (int)sizeof(W);  // weights per chunk
-    static_assert(CHUNK == 8 || CHUNK == 16, "rows of 8 or 16n bytes");
-    const int n = 9 * cin * (CT / E);
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const int r = e / (CT / E), q = e % (CT / E);
-      const W* src = w + (long long)r * COUT + jt * CT + E * q;
-      W* dst = s_w + r * CT + E * q;
-      if constexpr (CHUNK == 16) {
-        if (async)
-          cp_async16(dst, src);
-        else
-          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-      } else {
-        if (async)
-          cp_async8(dst, src);
-        else
-          *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
-      }
-    }
-  }
-}
-
-// Shared memory of the blocked kernel: one or two weight slices of
-// (9 * cw, CT), the halo (BNHALO, cw), and for int8 the halo's scales and
-// the CT column scales.  Offsets in bytes, 16-byte aligned regions.
-template <class R, int CT>
+// ---- blocked schedule, int8: the first design (see the header) -----------
+// Shared memory: one or two weight slices of (9 * cw, CT) words, the halo
+// (BNHALO, cw), the halo's scales and the CT column scales.  Offsets in
+// bytes, 16-byte aligned regions.
+template <int CT>
 struct BlockedSmem {
   int wsz, w, in, sc, scale, end;
   __host__ __device__ BlockedSmem(int cin, bool two) {
-    const int cw = halo_words<R>(cin);
-    wsz = 9 * cw * CT;  // elements of one slice
+    const int cw = halo_words<RI8>(cin);
+    wsz = 9 * cw * CT;  // words of one slice
     w = 0;
-    in = w + (((two ? 2 : 1) * wsz * (int)sizeof(typename R::SW) + 15) & ~15);
-    sc = in + BNHALO * cw * (int)sizeof(typename R::X);
-    scale = sc + (R::KPACK > 1 ? ((BNHALO * 4 + 15) & ~15) : 0);
-    end = scale + (R::KPACK > 1 ? CT * 4 : 0);
+    in = w + (((two ? 2 : 1) * wsz * (int)sizeof(int) + 15) & ~15);
+    sc = in + BNHALO * cw * (int)sizeof(int);
+    scale = sc + ((BNHALO * 4 + 15) & ~15);
+    end = scale + CT * 4;
   }
 };
 
-// One hidden block on the blocked schedule (see the header): grid
-// (ceil(b / bb) * tiles), 256 threads.
-template <class R, int COUT, int CT>
-__global__ void __launch_bounds__(BNPIX)
-conv_blocked_kernel(const void* __restrict__ x, const float* __restrict__ xs,
-                    const typename R::W* __restrict__ w,
-                    const float* __restrict__ wscale,
-                    const float* __restrict__ bias, float* __restrict__ out,
-                    int b, int l, int cin, int bb, int db) {
+// One hidden block at int8: grid ceil(b / bb) * (l / 16)^2, 256 threads.
+template <int COUT, int CT>
+__device__ __forceinline__ void conv_blocked_i8(
+    const void* __restrict__ x, const float* __restrict__ xs,
+    const int8_t* __restrict__ w, const float* __restrict__ wscale,
+    const float* __restrict__ bias, float* __restrict__ out, int b, int l,
+    int cin, int bb, int db) {
+  using R = RI8;
   using SW = typename R::SW;
   constexpr int NT = COUT / CT;  // channel tiles
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   const bool two = db && NT > 1;
-  const BlockedSmem<R, CT> sm(cin, two);
+  const BlockedSmem<CT> sm(cin, two);
   SW* s_w0 = reinterpret_cast<SW*>(smem + sm.w);
   auto* s_in = reinterpret_cast<typename R::X*>(smem + sm.in);
   float* s_sc = reinterpret_cast<float*>(smem + sm.sc);
@@ -600,26 +562,25 @@ conv_blocked_kernel(const void* __restrict__ x, const float* __restrict__ xs,
   const int py = threadIdx.x / BTW, px = threadIdx.x % BTW;
   const int nimg = min(bb, b - img0);
   if (two) {
-    stage_tile<R, COUT, CT>(w, s_w0, cin, 0, true);
+    stage_slice<R>(w, s_w0, cin, COUT, 0, 9, 0, CT);
     cp_async_commit();
   }
   for (int jt = 0; jt < NT; ++jt) {
     SW* s_w = s_w0 + (two ? (jt & 1) * sm.wsz : 0);
     __syncthreads();  // every thread is done with the buffers refilled next
-    if constexpr (R::KPACK > 1)
-      for (int c = threadIdx.x; c < CT; c += blockDim.x)
-        s_scale[c] = wscale[jt * CT + c];
+    for (int c = threadIdx.x; c < CT; c += blockDim.x)
+      s_scale[c] = wscale[jt * CT + c];
     if (two) {
       if (jt + 1 < NT) {
-        stage_tile<R, COUT, CT>(w, s_w0 + ((jt + 1) & 1) * sm.wsz, cin,
-                                jt + 1, true);
+        stage_slice<R>(w, s_w0 + ((jt + 1) & 1) * sm.wsz, cin, COUT, 0, 9,
+                       (jt + 1) * CT, CT);
         cp_async_commit();
         cp_async_wait<1>();  // this tile's slice has landed
       } else {
         cp_async_wait<0>();
       }
     } else {
-      stage_tile<R, COUT, CT>(w, s_w, cin, jt, false);
+      stage_slice<R>(w, s_w, cin, COUT, 0, 9, jt * CT, CT);
     }
     for (int i = 0; i < nimg; ++i) {
       const long long img = img0 + i;
@@ -629,9 +590,8 @@ conv_blocked_kernel(const void* __restrict__ x, const float* __restrict__ xs,
       float acc[CT];
       for (int tap = 0; tap < 9; ++tap) {
         const int off = (py + tap / 3) * BHWD + (px + tap % 3);
-        const float sx = R::KPACK > 1 ? s_sc[off] : 0.f;
-        tap_fold<R, CT>(s_in + off, BNHALO, s_w + tap * cw * CT, cw, sx,
-                        s_scale, tap, acc);
+        tap_fold<R, CT>(s_in + off, BNHALO, s_w + tap * cw * CT, cw,
+                        s_sc[off], s_scale, tap, acc);
       }
       float* o = out + ((img * l + y0 + py) * l + x0 + px) * COUT;
       if constexpr (NT == 1) {
@@ -697,11 +657,13 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
                "l"(gmem), "r"(valid ? 16 : 0));
 }
 
-// The (RHW x RHW) halo of the pixel tile at (y0, x0) of image img, zero
-// outside the image: s_in[(hy * RHP + hx) * SIN + ci].  cin % 4 == 0 with
-// cp.async (bf16 rounds it once it has landed, rt_round_halo); layer 0's
-// 12-byte pixels synchronously, rounded for bf16.
-template <class R, int CIN>
+// The (HW x HW) halo of the pixel tile at (y0 + 1, x0 + 1) of image img
+// (the flat kernels': 18 x 18 of a 16 x 16 tile; the blocked kernel's: 10
+// x 10 of an 8 x 8 slot), zero outside the image: s_in[(hy * HP + hx) *
+// SIN + ci], rows HP pixels apart.  cin % 4 == 0 with cp.async (bf16
+// rounds it once it has landed, rt_round_halo); layer 0's 12-byte pixels
+// synchronously, rounded for bf16.
+template <class R, int CIN, int HW = RHW, int HP = RHP>
 __device__ __forceinline__ void rt_load_halo(const float* __restrict__ x,
                                              float* s_in, long long img,
                                              int y0, int x0, int l) {
@@ -709,36 +671,36 @@ __device__ __forceinline__ void rt_load_halo(const float* __restrict__ x,
   const float* xi = x + img * l * l * CIN;
   if constexpr (CIN % 4 == 0) {
     constexpr int Q = CIN / 4;
-    for (int e = threadIdx.x; e < RHW * RHW * Q; e += blockDim.x) {
+    for (int e = threadIdx.x; e < HW * HW * Q; e += blockDim.x) {
       const int q = e % Q, p = e / Q;
-      const int hy = p / RHW, hx = p % RHW;
+      const int hy = p / HW, hx = p % HW;
       const int gy = y0 + hy - 1, gx = x0 + hx - 1;
       const bool in = gy >= 0 && gy < l && gx >= 0 && gx < l;
-      cp_async16_zfill(s_in + (hy * RHP + hx) * SIN + 4 * q,
+      cp_async16_zfill(s_in + (hy * HP + hx) * SIN + 4 * q,
                        in ? xi + ((long long)gy * l + gx) * CIN + 4 * q : xi,
                        in);
     }
   } else {
-    for (int e = threadIdx.x; e < RHW * RHW * CIN; e += blockDim.x) {
+    for (int e = threadIdx.x; e < HW * HW * CIN; e += blockDim.x) {
       const int c = e % CIN, p = e / CIN;
-      const int hy = p / RHW, hx = p % RHW;
+      const int hy = p / HW, hx = p % HW;
       const int gy = y0 + hy - 1, gx = x0 + hx - 1;
       float v = 0.f;
       if (gy >= 0 && gy < l && gx >= 0 && gx < l)
         v = xi[((long long)gy * l + gx) * CIN + c];
       if constexpr (std::is_same<R, RBF16>::value)
         v = round_to<__nv_bfloat16>(v);
-      s_in[(hy * RHP + hx) * SIN + c] = v;
+      s_in[(hy * HP + hx) * SIN + c] = v;
     }
   }
 }
 
-template <int CIN>
+template <int CIN, int HW = RHW, int HP = RHP>
 __device__ __forceinline__ void rt_round_halo(float* s_in) {
   constexpr int SIN = rt_pitch(CIN);
-  for (int e = threadIdx.x; e < RHW * RHW * CIN; e += blockDim.x) {
+  for (int e = threadIdx.x; e < HW * HW * CIN; e += blockDim.x) {
     const int c = e % CIN, p = e / CIN;
-    float* v = s_in + ((p / RHW) * RHP + p % RHW) * SIN + c;
+    float* v = s_in + ((p / HW) * HP + p % HW) * SIN + c;
     *v = round_to<__nv_bfloat16>(*v);
   }
 }
@@ -772,40 +734,44 @@ __device__ __forceinline__ float lane_of(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// One tap of a thread's TM x TN register tile, `tap_fold`'s chain: for
-// each output a fresh partial over the input channels in order, folded
-// left into acc (tap 0 starts the sum).  a0: the thread's first pixel in
-// the halo at this tap's offset (pixel m is RPG * m pixels on); wt: the tap's
-// slot at the thread's first column (column group q is 4 * NCG columns on).
-template <class R, int NP, int CIN>
+// THE tap primitive of the fp32 and bf16 rungs, flat and blocked: one tap
+// of a thread's TMX x TNX register tile.  For each output a fresh partial
+// over the input channels in order (0, then fmaf), folded left into acc
+// (tap 0 starts the sum).  a0: the thread's first pixel in the halo at
+// this tap's offset (pixel m is PSTEP * m pixels on); wt: the tap's
+// weights, NP columns a row, at the thread's first column (column group q
+// is 4 * NCG columns on, NCG = NP / TNX).
+template <class R, int NP, int CIN, int TMX = TM, int TNX = TN,
+          int PSTEP = RPG>
 __device__ __forceinline__ void rt_tap(const float* a0,
                                        const typename R::SW* wt, int tap,
-                                       float (&acc)[TM][TN]) {
-  constexpr int SIN = rt_pitch(CIN), NCG = NP / TN;
-  float part[TM][TN];
+                                       float (&acc)[TMX][TNX]) {
+  constexpr int SIN = rt_pitch(CIN), NCG = NP / TNX;
+  static_assert(TNX % 4 == 0 && NP % TNX == 0, "columns come in fours");
+  float part[TMX][TNX];
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
+  for (int m = 0; m < TMX; ++m)
 #pragma unroll
-    for (int n = 0; n < TN; ++n) part[m][n] = 0.f;
+    for (int n = 0; n < TNX; ++n) part[m][n] = 0.f;
   // tools/torch_regtile_sweep.py rewrites this unroll count
 #pragma unroll 4
   for (int c4 = 0; c4 < CIN; c4 += 4) {
-    float4 a[TM];
+    float4 a[TMX];
 #pragma unroll
-    for (int m = 0; m < TM; ++m)
-      a[m] = *reinterpret_cast<const float4*>(a0 + RPG * m * SIN + c4);
+    for (int m = 0; m < TMX; ++m)
+      a[m] = *reinterpret_cast<const float4*>(a0 + PSTEP * m * SIN + c4);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (CIN % 4 == 0 || c4 + j < CIN) {
-        float4 wv[TN / 4];
+        float4 wv[TNX / 4];
 #pragma unroll
-        for (int q = 0; q < TN / 4; ++q)
+        for (int q = 0; q < TNX / 4; ++q)
           wv[q] = load_w4(wt + (c4 + j) * NP + 4 * NCG * q);
 #pragma unroll
-        for (int m = 0; m < TM; ++m) {
+        for (int m = 0; m < TMX; ++m) {
           const float xv = lane_of(a[m], j);
 #pragma unroll
-          for (int q = 0; q < TN / 4; ++q) {
+          for (int q = 0; q < TNX / 4; ++q) {
             part[m][4 * q + 0] = fmaf(xv, wv[q].x, part[m][4 * q + 0]);
             part[m][4 * q + 1] = fmaf(xv, wv[q].y, part[m][4 * q + 1]);
             part[m][4 * q + 2] = fmaf(xv, wv[q].z, part[m][4 * q + 2]);
@@ -816,9 +782,9 @@ __device__ __forceinline__ void rt_tap(const float* a0,
     }
   }
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
+  for (int m = 0; m < TMX; ++m)
 #pragma unroll
-    for (int n = 0; n < TN; ++n)
+    for (int n = 0; n < TNX; ++n)
       acc[m][n] = tap == 0 ? part[m][n] : __fadd_rn(acc[m][n], part[m][n]);
 }
 
@@ -834,10 +800,44 @@ __device__ __forceinline__ int rt_column(int n) {
   return 4 * NCG * (n / 4) + 4 * (threadIdx.x % NCG) + n % 4;
 }
 
-// The nine taps of the block's tile into acc: the halo and the first two
-// taps' weights in flight, then per tap one barrier, the copy of the tap
-// two ahead (into the slot of the tap before), and the tap's FFMA.  Ends
-// with a barrier, after which the halo and the ring are free.
+// The nine taps of a block through the three-slot weight ring s_w (slots
+// of CIN x NP weights; NC < NP padding columns are zero, never copied
+// over): the first two taps' weights in flight (with whatever halo the
+// caller has issued and not yet committed), then per tap one barrier, the
+// copy of the tap two ahead (into the slot of the tap before), and
+// tap_fn(tap, slot).  landed() runs once every copy of tap 0 and the halo
+// has landed, before tap 0.  Ends with a barrier, after which the halo and
+// the ring are free.
+template <class R, int NP, int NC, int CIN, class Landed, class TapFn>
+__device__ __forceinline__ void rt_ring(const typename R::W* __restrict__ w,
+                                        typename R::SW* s_w, Landed landed,
+                                        TapFn tap_fn) {
+  using SW = typename R::SW;
+  constexpr int WTAP = CIN * NP;  // weights in one slot
+  if constexpr (NC < NP) {
+    for (int e = threadIdx.x; e < RSTAGES * CIN * (NP - NC); e += blockDim.x)
+      s_w[(e / (NP - NC)) * NP + NC + e % (NP - NC)] = SW(0.f);
+  }
+  rt_stage_tap<R, NP, NC, CIN>(w, s_w, 0);
+  cp_async_commit();
+  rt_stage_tap<R, NP, NC, CIN>(w, s_w + WTAP, 1);
+  cp_async_commit();
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    cp_async_wait<1>();  // this thread's copies of the tap (and halo) landed
+    __syncthreads();     // everyone's have; everyone is done with tap - 1
+    if (tap == 0) landed();
+    if (tap + 2 < 9)
+      rt_stage_tap<R, NP, NC, CIN>(w, s_w + ((tap + 2) % RSTAGES) * WTAP,
+                                   tap + 2);
+    cp_async_commit();  // empty at the last two taps: keeps wait<1> exact
+    tap_fn(tap, s_w + (tap % RSTAGES) * WTAP);
+  }
+  __syncthreads();
+}
+
+// The flat kernels' nine taps of the block's 16x16 tile into acc: the
+// halo, then the ring.
 template <class R, int NP, int NC, int CIN>
 __device__ __forceinline__ void rt_conv(const float* __restrict__ x,
                                         const typename R::W* __restrict__ w,
@@ -846,38 +846,22 @@ __device__ __forceinline__ void rt_conv(const float* __restrict__ x,
   using K = Rt<R, NP, CIN>;
   using SW = typename R::SW;
   float* s_in = reinterpret_cast<float*>(smem);
-  SW* s_w = reinterpret_cast<SW*>(smem + K::W);
-  if constexpr (NC < NP) {  // padding columns: zero, never copied over
-    for (int e = threadIdx.x; e < RSTAGES * CIN * (NP - NC); e += blockDim.x)
-      s_w[(e / (NP - NC)) * NP + NC + e % (NP - NC)] = SW(0.f);
-  }
   rt_load_halo<R, CIN>(x, s_in, img, y0, x0, l);
-  rt_stage_tap<R, NP, NC, CIN>(w, s_w, 0);
-  cp_async_commit();
-  rt_stage_tap<R, NP, NC, CIN>(w, s_w + K::WTAP, 1);
-  cp_async_commit();
   const int pg = threadIdx.x / K::NCG;
   const int first = (pg / RPG) * RHP + pg % RPG;  // pixel 0 at tap 0
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    cp_async_wait<1>();  // this thread's copies of the tap (and halo) landed
-    __syncthreads();     // everyone's have; everyone is done with tap - 1
-    if constexpr (std::is_same<R, RBF16>::value && CIN % 4 == 0) {
-      if (tap == 0) {
-        rt_round_halo<CIN>(s_in);
-        __syncthreads();
-      }
-    }
-    if (tap + 2 < 9)
-      rt_stage_tap<R, NP, NC, CIN>(
-          w, s_w + ((tap + 2) % RSTAGES) * K::WTAP, tap + 2);
-    cp_async_commit();  // empty at the last two taps: keeps wait<1> exact
-    rt_tap<R, NP, CIN>(s_in + (first + (tap / 3) * RHP + tap % 3) * K::SIN,
-                       s_w + (tap % RSTAGES) * K::WTAP +
-                           4 * (threadIdx.x % K::NCG),
-                       tap, acc);
-  }
-  __syncthreads();
+  rt_ring<R, NP, NC, CIN>(
+      w, reinterpret_cast<SW*>(smem + K::W),
+      [&] {
+        if constexpr (std::is_same<R, RBF16>::value && CIN % 4 == 0) {
+          rt_round_halo<CIN>(s_in);
+          __syncthreads();
+        }
+      },
+      [&](int tap, const SW* slot) {
+        rt_tap<R, NP, CIN>(
+            s_in + (first + (tap / 3) * RHP + tap % 3) * K::SIN,
+            slot + 4 * (threadIdx.x % K::NCG), tap, acc);
+      });
 }
 
 // One hidden block, flat schedule, fp32 / bf16: grid b * (l / RT)^2.
@@ -1032,40 +1016,315 @@ gap_corr_regtile_kernel(const float* __restrict__ x,
                                       img, by, bx, l, has_corr);
 }
 
+// ---- blocked schedule, fp32 and bf16: the register-tiled engine ------------
+// (see the header).  A block computes BSLOTS slots of BS x BS pixels at a
+// time, each slot an (image, subtile) pair with a BHW x BHW halo of its
+// own (rows BHW pixels apart, pixels rt_pitch(cin) floats apart, so the
+// four pixel rows a warp loads at once fall two bank quads apart); a
+// thread owns one slot row, BTM pixels, x BkTile::TNB columns.
+constexpr int BS = 8, BSLOTS = 4, BHW = BS + 2, BTM = BS;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
+
+// 8x8 subtiles of an image in one block's region: 4 (16x16) at bb 1, 2
+// (8 rows x 16 columns) at bb 2 and 3, 1 at bb >= 4, so that the slots of a
+// round hold 4 / (subtiles) images and the grid stays >= 256 blocks at
+// b = 32, l = 64 for every bb up to 8
+__host__ __device__ constexpr int bk_region(int bb) {
+  return bb >= 4 ? 1 : bb >= 2 ? 2 : 4;
+}
+__host__ __device__ inline int bk_blocks(int b, int l, int bb) {
+  return (b + bb - 1) / bb * ((l / BS) * (l / BS) / bk_region(bb));
+}
+
+// A thread's columns: 8 at ct = 64, 4 below (ct 32 then still runs 256
+// threads, and a ct of 4 one column group); NCG column groups.
+template <int CT>
+struct BkTile {
+  static constexpr int TNB = CT >= 64 ? 8 : 4;
+  static constexpr int NCG = CT / TNB;
+  static constexpr int THREADS = BSLOTS * BS * NCG;
+};
+
+// Shared memory of the blocked engine at COUT columns, channel tile CT and
+// CIN input channels: the four slot halos, which the ct = C epilogue
+// reuses for the staged pre-norm rows, then the resident weight slice of
+// all nine taps (9 * CIN, CT) or, where that does not fit, the three-slot
+// ring.  Offsets in bytes, 16-byte aligned.
+template <class R, int COUT, int CT, int CIN>
+struct Bk {
+  using SW = typename R::SW;
+  static constexpr int NT = COUT / CT;  // channel tiles
+  static constexpr int SIN = rt_pitch(CIN);
+  static constexpr int SLOT = BHW * BHW * SIN;  // floats of one slot's halo
+  static constexpr int HALO = BSLOTS * SLOT * 4;
+  static constexpr int STAGE = NT == 1 ? BSLOTS * BS * BS * (COUT + 1) * 4 : 0;
+  static constexpr int W = ((HALO > STAGE ? HALO : STAGE) + 15) & ~15;
+  static constexpr int SLICE = 9 * CIN * CT * (int)sizeof(SW);
+  static constexpr bool RESIDENT = W + SLICE <= kMaxSmem;
+  static constexpr int END =
+      W + (RESIDENT ? SLICE : RSTAGES * CIN * CT * (int)sizeof(SW));
+  static_assert(RESIDENT || NT == 1, "a streamed slice is the whole width");
+  static_assert(END <= kMaxSmem, "fits one block");
+};
+
+// Rows [r0, r1) of the packed (9 * cin, COUT) weight, output columns
+// [jt * CT, (jt + 1) * CT), into s_w[r * CT + c] with cp.async: 16-byte
+// chunks (8 bytes for a bf16 row of 4).
+template <class R, int COUT, int CT>
+__device__ __forceinline__ void stage_rows(const typename R::W* __restrict__ w,
+                                           typename R::SW* s_w, int r0, int r1,
+                                           int jt) {
+  using W = typename R::W;
+  static_assert(std::is_same<W, typename R::SW>::value, "staged as stored");
+  constexpr int ROW = CT * (int)sizeof(W);
+  constexpr int CHUNK = ROW < 16 ? ROW : 16;
+  constexpr int E = CHUNK / (int)sizeof(W);  // weights per chunk
+  static_assert(CHUNK == 8 || CHUNK == 16, "rows of 8 or 16n bytes");
+  const int n = (r1 - r0) * (CT / E);
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int r = r0 + e / (CT / E), q = e % (CT / E);
+    const W* src = w + (long long)r * COUT + jt * CT + E * q;
+    W* dst = s_w + r * CT + E * q;
+    if constexpr (CHUNK == 16)
+      cp_async16(dst, src);
+    else
+      cp_async8(dst, src);
+  }
+}
+
+// One hidden block at fp32 / bf16 on the blocked schedule, CIN input
+// channels: grid bk_blocks(b, l, bb), BkTile<CT>::THREADS threads.
+template <class R, int COUT, int CT, int CIN>
+__device__ __forceinline__ void conv_blocked_rt(
+    const float* __restrict__ x, const typename R::W* __restrict__ w,
+    const float* __restrict__ bias, float* __restrict__ out, int b, int l,
+    int bb, int db) {
+  using K = Bk<R, COUT, CT, CIN>;
+  using T = BkTile<CT>;
+  using SW = typename R::SW;
+  constexpr bool BF16 = std::is_same<R, RBF16>::value && CIN % 4 == 0;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* s_in = reinterpret_cast<float*>(smem);
+  SW* s_w = reinterpret_cast<SW*>(smem + K::W);
+  // the block's images and region; a round's slot s holds pair
+  // p = r * BSLOTS + s: image img0 + p / q, subtile p % q of the region
+  const int q = bk_region(bb), qw = q == 1 ? 1 : 2, qh = q == 4 ? 2 : 1;
+  const int rcols = l / (BS * qw), regions = rcols * (l / (BS * qh));
+  const int img0 = blockIdx.x / regions * bb, reg = blockIdx.x % regions;
+  const int ry0 = reg / rcols * BS * qh, rx0 = reg % rcols * BS * qw;
+  const int pairs = min(bb, b - img0) * q;
+  const int rounds = (pairs + BSLOTS - 1) / BSLOTS;
+  // false for an idle slot of a ragged last block
+  auto origin = [&](int p, long long& img, int& y0, int& x0) {
+    img = img0 + p / q;
+    y0 = ry0 + (p % q) / qw * BS;
+    x0 = rx0 + (p % q) % qw * BS;
+    return p < pairs;
+  };
+  auto halos = [&](int r) {  // issue the round's halo copies
+    for (int s = 0; s < BSLOTS; ++s) {
+      long long img;
+      int y0, x0;
+      if (origin(r * BSLOTS + s, img, y0, x0))
+        rt_load_halo<R, CIN, BHW, BHW>(x, s_in + s * K::SLOT, img, y0, x0, l);
+    }
+  };
+  auto round_halos = [&] {  // bf16: once the copies have landed
+    if constexpr (BF16) {
+      for (int s = 0; s < BSLOTS; ++s)
+        rt_round_halo<CIN, BHW, BHW>(s_in + s * K::SLOT);
+      __syncthreads();
+    }
+  };
+  const int cg = threadIdx.x % T::NCG, pg = threadIdx.x / T::NCG;
+  const int slot = pg / BS, row = pg % BS;
+  const float* a0 = s_in + slot * K::SLOT + row * BHW * K::SIN;
+  auto tap = [&](int t, const SW* wt, float(&acc)[BTM][T::TNB]) {
+    rt_tap<R, CT, CIN, BTM, T::TNB, 1>(a0 + (t / 3 * BHW + t % 3) * K::SIN,
+                                       wt + 4 * cg, t, acc);
+  };
+  // the pre-norm tile: ct = C, staged over the halo, normalised one thread
+  // a pixel and written out coalesced; ct < C, pass jt's columns to out
+  auto store = [&](int r, int jt, const float(&acc)[BTM][T::TNB]) {
+    if constexpr (K::NT == 1) {
+      constexpr int SP = COUT + 1;  // odd: a thread per pixel reads
+      float* s_pre = s_in;          // conflict-free
+      __syncthreads();              // every thread is done with the halo
+#pragma unroll
+      for (int m = 0; m < BTM; ++m)
+#pragma unroll
+        for (int n = 0; n < T::TNB; ++n)
+          s_pre[(pg * BTM + m) * SP + rt_column<T::NCG>(n)] = acc[m][n];
+      __syncthreads();
+      for (int p = threadIdx.x; p < BSLOTS * BS * BS; p += blockDim.x) {
+        float* v = s_pre + p * SP;
+        norm_relu_to<COUT>([v](int co) { return v[co]; }, bias,
+                           [v](int q4, float4 o) {
+                             v[4 * q4] = o.x;
+                             v[4 * q4 + 1] = o.y;
+                             v[4 * q4 + 2] = o.z;
+                             v[4 * q4 + 3] = o.w;
+                           });
+      }
+      __syncthreads();
+      for (int s = 0; s < BSLOTS; ++s) {
+        long long img;
+        int y0, x0;
+        if (!origin(r * BSLOTS + s, img, y0, x0)) continue;
+        float* o = out + ((img * l + y0) * l + x0) * COUT;
+        for (int e = threadIdx.x; e < BS * BS * COUT; e += blockDim.x) {
+          const int p = e / COUT, co = e % COUT;
+          o[((long long)(p / BS) * l + p % BS) * COUT + co] =
+              s_pre[(s * BS * BS + p) * SP + co];
+        }
+      }
+    } else {
+      long long img;
+      int y0, x0;
+      if (!origin(r * BSLOTS + slot, img, y0, x0)) return;
+      float* o = out + ((img * l + y0 + row) * l + x0) * COUT + jt * CT +
+                 4 * cg;
+#pragma unroll
+      for (int m = 0; m < BTM; ++m)
+#pragma unroll
+        for (int g = 0; g < T::TNB / 4; ++g)
+          *reinterpret_cast<float4*>(o + m * COUT + 4 * T::NCG * g) =
+              make_float4(acc[m][4 * g], acc[m][4 * g + 1], acc[m][4 * g + 2],
+                          acc[m][4 * g + 3]);
+    }
+  };
+  float acc[BTM][T::TNB];
+  if constexpr (K::RESIDENT) {
+    for (int jt = 0; jt < K::NT; ++jt) {
+      if (jt == 0 || !db) {  // with db, the last round of jt - 1 fetched it
+        __syncthreads();     // every thread is done with slice jt - 1
+        stage_rows<R, COUT, CT>(w, s_w, 0, 9 * CIN, jt);
+        cp_async_commit();
+      }
+      for (int r = 0; r < rounds; ++r) {
+        const bool fresh = jt == 0 || rounds > 1;  // else the halo stays
+        if (fresh) {
+          __syncthreads();  // every thread is done with the last halo
+          halos(r);
+          cp_async_commit();
+        }
+        cp_async_wait<0>();
+        __syncthreads();
+        if (fresh) round_halos();
+        const bool prefetch = db && jt + 1 < K::NT && r + 1 == rounds;
+#pragma unroll 1
+        for (int t = 0; t < 9; ++t) {
+          tap(t, s_w + t * CIN * CT, acc);
+          if (prefetch) {  // tap t of slice jt + 1 over tap t of slice jt
+            __syncthreads();
+            stage_rows<R, COUT, CT>(w, s_w, t * CIN, (t + 1) * CIN, jt + 1);
+            cp_async_commit();
+          }
+        }
+        store(r, jt, acc);
+      }
+    }
+  } else {  // ct = C, streamed: the halo, then the ring, every round
+    for (int r = 0; r < rounds; ++r) {
+      __syncthreads();  // every thread is done with the staged rows
+      halos(r);
+      rt_ring<R, CT, CT, CIN>(w, s_w, round_halos,
+                              [&](int t, const SW* wt) { tap(t, wt, acc); });
+      store(r, 0, acc);
+    }
+  }
+  if constexpr (K::NT > 1) {  // normalise the block's pixels in out
+    __syncthreads();          // every pass's columns are written
+    for (int e = threadIdx.x; e < pairs * BS * BS; e += blockDim.x) {
+      long long img;
+      int y0, x0;
+      origin(e / (BS * BS), img, y0, x0);
+      const int p = e % (BS * BS);
+      float* o = out + ((img * l + y0 + p / BS) * l + x0 + p % BS) * COUT;
+      norm_relu<COUT>([o](int co) { return o[co]; }, bias, o);
+    }
+  }
+}
+
+template <class R, int CT>
+__host__ __device__ constexpr int blocked_threads() {
+  return std::is_same<R, RI8>::value ? BNPIX : BkTile<CT>::THREADS;
+}
+
+// One conv block on the blocked schedule (see the header), CIN 3 or COUT
+// input channels: at fp32 / bf16 the register-tiled engine, grid
+// bk_blocks(b, l, bb); at int8 the first design, grid ceil(b / bb) *
+// (l / 16)^2.
+template <class R, int COUT, int CT, int CIN>
+__global__ void __launch_bounds__(blocked_threads<R, CT>(), 1)
+conv_blocked_kernel(const void* __restrict__ x, const float* __restrict__ xs,
+                    const typename R::W* __restrict__ w,
+                    const float* __restrict__ wscale,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int b, int l, int bb, int db) {
+  if constexpr (std::is_same<R, RI8>::value)
+    conv_blocked_i8<COUT, CT>(x, xs, w, wscale, bias, out, b, l, CIN, bb, db);
+  else
+    conv_blocked_rt<R, COUT, CT, CIN>(static_cast<const float*>(x), w, bias,
+                                      out, b, l, bb, db);
+}
+
 // Per image: GAP = (sum of the tile partials) / l^2, head as
 // broadcast-multiply + sum over K (operands at the head's precision,
-// products and sums fp32), + head bias, + corr * corr_scale.
+// products and sums fp32), + head bias, + corr * corr_scale.  The block
+// first copies its image's GAP and correlation partials into shared
+// memory, HEAD_TILES tiles at a time, with float4 loads issued together
+// (the partials are tile-major rows of NB floats); thread n then sums
+// column n over the tiles in tile order, the chain of the first design,
+// which walked global memory one dependent load at a time.
+constexpr int HEAD_THREADS = 128, HEAD_TILES = 32;
 template <class H, int NB>
-__global__ void head_kernel(const float* __restrict__ part_gap,
-                            const float* __restrict__ part_corr,
-                            const H* __restrict__ head_w,
-                            const float* __restrict__ head_b,
-                            const float* __restrict__ corr_scale,
-                            float* __restrict__ logits,
-                            float* __restrict__ embed, int l, int tiles,
-                            int has_corr) {
+__global__ void __launch_bounds__(HEAD_THREADS)
+head_kernel(const float* __restrict__ part_gap,
+            const float* __restrict__ part_corr, const H* __restrict__ head_w,
+            const float* __restrict__ head_b,
+            const float* __restrict__ corr_scale, float* __restrict__ logits,
+            float* __restrict__ embed, int l, int tiles, int has_corr) {
+  static_assert(NB % 4 == 0 && NB <= HEAD_THREADS, "a thread a column");
+  constexpr int CH4 = HEAD_TILES * NB / 4;  // float4s of one chunk
+  __shared__ float4 s_part[2 * CH4];        // GAP chunk, then corr chunk
   __shared__ float g[NB];
+  const float* s_gap = reinterpret_cast<const float*>(s_part);
+  const float* s_corr = s_gap + HEAD_TILES * NB;
   const long long img = blockIdx.x;
-  for (int n = threadIdx.x; n < NB; n += blockDim.x) {
-    float s = 0.f;
-    for (int t = 0; t < tiles; ++t)
-      s = __fadd_rn(s, part_gap[(img * tiles + t) * NB + n]);
-    g[n] = __fdiv_rn(s, (float)(l * l));
+  const int n = threadIdx.x;
+  float sg = 0.f, sc = 0.f;
+  for (int t0 = 0; t0 < tiles; t0 += HEAD_TILES) {
+    const int nt = min(HEAD_TILES, tiles - t0);
+    const long long first = (img * tiles + t0) * NB / 4;
+    const float4* pg = reinterpret_cast<const float4*>(part_gap) + first;
+    const float4* pc = reinterpret_cast<const float4*>(part_corr) + first;
+    __syncthreads();  // every thread is done with the last chunk
+#pragma unroll 4
+    for (int e = threadIdx.x; e < nt * NB / 4; e += blockDim.x) {
+      s_part[e] = pg[e];
+      if (has_corr) s_part[CH4 + e] = pc[e];
+    }
+    __syncthreads();
+    if (n < NB) {
+      for (int t = 0; t < nt; ++t) sg = __fadd_rn(sg, s_gap[t * NB + n]);
+      if (has_corr)
+        for (int t = 0; t < nt; ++t) sc = __fadd_rn(sc, s_corr[t * NB + n]);
+    }
+  }
+  if (n < NB) {
+    g[n] = __fdiv_rn(sg, (float)(l * l));
     if (embed != nullptr) embed[img * NB + n] = g[n];
   }
   __syncthreads();
-  for (int n = threadIdx.x; n < NB; n += blockDim.x) {
+  if (n < NB) {
     float acc = 0.f;
     for (int k = 0; k < NB; ++k)
       acc = __fadd_rn(acc, __fmul_rn(round_to<H>(g[k]),
                                      to_f(head_w[k * NB + n])));
     float out = __fadd_rn(acc, head_b[n]);
-    if (has_corr) {
-      float cs = 0.f;
-      for (int t = 0; t < tiles; ++t)
-        cs = __fadd_rn(cs, part_corr[(img * tiles + t) * NB + n]);
-      out = __fadd_rn(out, __fmul_rn(cs, corr_scale[n]));
-    }
+    if (has_corr) out = __fadd_rn(out, __fmul_rn(sc, corr_scale[n]));
     logits[img * NB + n] = out;
   }
 }
@@ -1092,6 +1351,10 @@ struct Extractor {
                      const float* wscale, const float* bias, float* out,
                      int b, int l, int cin, int bb, int db,
                      cudaStream_t stream);
+  template <int COUT, int CT, int CIN>
+  static int blocked_cin(const void* x, const float* xs, const void* w,
+                         const float* wscale, const float* bias, float* out,
+                         int b, int l, int bb, int db, cudaStream_t stream);
   static int blocked_any(const void* x, const float* xs, const void* w,
                          const float* wscale, const float* bias, float* out,
                          int b, int l, int cin, int cout, int bb, int ct,
@@ -1165,13 +1428,37 @@ int Extractor<R>::blocked(const void* x, const float* xs, const void* w,
                           const float* wscale, const float* bias, float* out,
                           int b, int l, int cin, int bb, int db,
                           cudaStream_t stream) {
-  const bool two = db && COUT / CT > 1;
-  const int blocks = (b + bb - 1) / bb * (l / BTH) * (l / BTW);
-  const size_t smem = BlockedSmem<R, CT>(cin, two).end;
-  cudaError_t err = set_smem(conv_blocked_kernel<R, COUT, CT>, smem);
+  if (l % 16) return (int)cudaErrorInvalidValue;
+  if (cin == 3)
+    return blocked_cin<COUT, CT, 3>(x, xs, w, wscale, bias, out, b, l, bb, db,
+                                    stream);
+  if (cin == COUT)
+    return blocked_cin<COUT, CT, COUT>(x, xs, w, wscale, bias, out, b, l, bb,
+                                       db, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class R>
+template <int COUT, int CT, int CIN>
+int Extractor<R>::blocked_cin(const void* x, const float* xs, const void* w,
+                              const float* wscale, const float* bias,
+                              float* out, int b, int l, int bb, int db,
+                              cudaStream_t stream) {
+  int blocks, threads;
+  size_t smem;
+  if constexpr (std::is_same<R, RI8>::value) {
+    blocks = (b + bb - 1) / bb * (l / BTH) * (l / BTW);
+    threads = BNPIX;
+    smem = BlockedSmem<CT>(CIN, db && COUT / CT > 1).end;
+  } else {
+    blocks = bk_blocks(b, l, bb);
+    threads = BkTile<CT>::THREADS;
+    smem = Bk<R, COUT, CT, CIN>::END;
+  }
+  cudaError_t err = set_smem(conv_blocked_kernel<R, COUT, CT, CIN>, smem);
   if (err != cudaSuccess) return (int)err;
-  conv_blocked_kernel<R, COUT, CT><<<blocks, BNPIX, smem, stream>>>(
-      x, xs, static_cast<const W*>(w), wscale, bias, out, b, l, cin, bb, db);
+  conv_blocked_kernel<R, COUT, CT, CIN><<<blocks, threads, smem, stream>>>(
+      x, xs, static_cast<const W*>(w), wscale, bias, out, b, l, bb, db);
   return (int)cudaGetLastError();
 }
 
@@ -1258,7 +1545,7 @@ int Extractor<R>::head(const float* part_gap, const float* part_corr,
   constexpr int NB = 60;
   if (n_bits != NB) return (int)cudaErrorInvalidValue;
   const int tiles = (l / TH) * (l / TW);
-  head_kernel<typename R::H, NB><<<b, 64, 0, stream>>>(
+  head_kernel<typename R::H, NB><<<b, HEAD_THREADS, 0, stream>>>(
       part_gap, part_corr, static_cast<const typename R::H*>(head_w), head_b,
       corr_scale, logits, embed, l, tiles, has_corr);
   return (int)cudaGetLastError();

@@ -33,8 +33,8 @@ extern "C" int qr_conv3x3_norm_relu(const void* x, const void* xs,
   }
 }
 
-// Blocked schedule: cout in {16, 32, 64}, ct a multiple of 4 dividing cout,
-// bb >= 1, l a multiple of 16, w 16-byte aligned.
+// Blocked schedule: cout in {16, 32, 64}, cin 3 or cout, ct a multiple of
+// 4 dividing cout, bb >= 1, l a multiple of 16, w 16-byte aligned.
 extern "C" int qr_conv3x3_norm_relu_blocked(const void* x, const void* xs,
                                             const void* w, const void* wscale,
                                             const void* bias, void* out,

@@ -34,8 +34,12 @@ The blocked schedule (batch block ``bb``, output-channel tile ``ct``,
 * :func:`fused_extractor_blocked_cuda` — the blocked CUDA conv kernel
   for the hidden blocks (``conv_blocked_kernel``), then the flat
   to_bits and head kernels (at int8 a quantize pass before each conv,
-  and the one-thread-per-pixel ``__dp4a`` to_bits kernel).  Its logits equal
-  the flat kernel's bit for bit on every schedule, at every rung.
+  and the one-thread-per-pixel ``__dp4a`` to_bits kernel).  At fp32 and
+  bf16 the blocked conv runs the flat kernels' register-tiled engine on
+  four 8x8 pixel slots at a time, filled by ``bb`` images, with each
+  channel tile's weight slice staged once a block where it fits.  Its
+  logits equal the flat kernel's bit for bit on every schedule, at
+  every rung.
 
 All four return ``(logits, embed)`` with ``embed`` the (b, n_bits) GAP
 vector when ``with_embed``, else ``logits`` alone.
@@ -219,7 +223,7 @@ def conv_kernel_name(rung: int, cin: int, cout: int,
     (int8), or with a ``channel_tile`` ``qr_conv3x3_norm_relu_blocked``."""
     if channel_tile is not None:
         return f"conv_blocked_kernel<{_RUNG_TYPES[rung]},{cout}," \
-            f"{channel_tile}>"
+            f"{channel_tile},{cin}>"
     if rung == INT8:
         return f"conv_imma_kernel<{cin},{cout}>"
     return f"conv_regtile_kernel<{_RUNG_TYPES[rung]},{cout},{cin}>"
@@ -240,6 +244,15 @@ def to_bits_kernel_name(rung: int, cin: int, n_bits: int,
 def head_kernel_name(rung: int, n_bits: int) -> str:
     """The CUDA kernel that ``qr_extractor_head`` launches."""
     return f"head_kernel<{_HEAD_TYPES[rung]},{n_bits}>"
+
+
+def is_decode_kernel(name: str) -> bool:
+    """Whether a profiled device kernel is one of the decode's (a conv,
+    to_bits, the head or the int8 quantize pass): what a decode's
+    device time sums."""
+    return "qr::" in name and any(
+        p in name for p in ("conv_", "gap_corr", "head_kernel",
+                            "quantize_rows"))
 
 
 def _layer_input(lib, x, cin, rung, stream):

@@ -417,7 +417,8 @@ def test_decode_kernels_count_their_launches(dev, dtype):
     flat = {fx.conv_kernel_name(r, 3, 16): 1,
             fx.conv_kernel_name(r, 16, 16): 2,
             fx.to_bits_kernel_name(r, 16, 60): 1, **head}
-    blocked = {fx.conv_kernel_name(r, 16, 16, 8): 3,
+    blocked = {fx.conv_kernel_name(r, 3, 16, 8): 1,
+               fx.conv_kernel_name(r, 16, 16, 8): 2,
                fx.to_bits_kernel_name(r, 16, 60, blocked=True): 1, **head}
     if dtype == "int8":
         blocked["quantize_rows_kernel"] = 4
@@ -481,6 +482,44 @@ def test_hidden_block_flat_equals_blocked_bitwise(dev, dtype, channels, l,
             double_buffer=True, with_embed=True)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_blocked_small_batch_full_width_equals_flat(dev, dtype, b):
+    """Full width (C 64, l 64, correlation bank; depth cut to 3) at b = 1
+    and 3: schedules whose batch block exceeds the batch (clamped by the
+    op, so the block's slots are part idle), at ct = C, C / 2 and 4, equal
+    the flat kernel bit for bit, logits and embedding; and each hidden
+    block launched with the unclamped bb 8 > b (layer 0 and 64 -> 64,
+    fp32 / bf16) equals the flat block."""
+    pk = _rung_pack(dev, dtype, channels=64, depth=3, tile=64)
+    tiles = torch.as_tensor(np.random.default_rng(b + 40).uniform(
+        -2.0, 2.5, (b, 64, 64, 3)).astype(np.float32)).to(dev)
+    flat = fx.fused_extractor_cuda(tiles, pk, with_embed=True)
+    for sc in ("bb4-ct0", "bb8-ct32-db", "bb8-ct32", "bb2-ct4-db"):
+        s = at.Schedule.from_string(sc)
+        got = fx.fused_extractor_blocked_cuda(
+            tiles, pk, batch_block=s.batch_block,
+            channel_tile=s.channel_tile, double_buffer=s.double_buffer,
+            with_embed=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], flat[0]), sc
+        assert torch.equal(got[1], flat[1]), sc
+    if dtype == "int8":
+        return
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rung = fx.RUNGS[dtype]
+    x = tiles
+    for blk in pk["blocks"][:2]:
+        want = fx.conv_block(lib, x, blk, rung, stream)
+        for ct, db in ((64, False), (32, True)):
+            got = fx.conv_block(lib, x, blk, rung, stream,
+                                blocked=(8, ct, db))
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (x.shape[-1], ct)
+        x = want
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])

@@ -225,8 +225,8 @@ ptxas info    : Compiling entry function '_ZN2qr16conv_imma_kernelILi64ELi64EEEv
 ptxas info    : Function properties for _ZN2qr16conv_imma_kernelILi64ELi64EEEvPKvPKfPK4int2S4_S4_PiPfi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 118 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN2qr19conv_blocked_kernelINS_3RI8ELi16ELi4EEEvPKvPKfPKNT_1WES5_S5_Pfiiiii' for 'sm_90a'
-ptxas info    : Function properties for _ZN2qr19conv_blocked_kernelINS_3RI8ELi16ELi4EEEvPKvPKfPKNT_1WES5_S5_Pfiiiii
+ptxas info    : Compiling entry function '_ZN2qr19conv_blocked_kernelINS_3RI8ELi16ELi4ELi16EEEvPKvPKfPKNT_1WES5_S5_Pfiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN2qr19conv_blocked_kernelINS_3RI8ELi16ELi4ELi16EEEvPKvPKfPKNT_1WES5_S5_Pfiiii
     16 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 48 registers, used 1 barriers, 16 bytes cumulative stack size
 ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__730f3e01_12_rs_decode_cu_979a838825rs_syndrome_decode_kernelEPKiPiS2_PbS2_i' for 'sm_90a'
@@ -245,7 +245,7 @@ def test_ptxas_log_is_read_per_kernel():
     regs = _build.kernel_registers(PTXAS_LOG)
     assert sorted(regs) == [
         "(anonymous namespace)::rs_syndrome_decode_kernel",
-        "qr::conv_blocked_kernel<qr::RI8, 16, 4>",
+        "qr::conv_blocked_kernel<qr::RI8, 16, 4, 16>",
         "qr::conv_imma_kernel<64, 64>"]
     i8 = fx.RUNGS["int8"]
     assert _build.registers_of(regs, fx.conv_kernel_name(i8, 64, 64)) == \

@@ -5,7 +5,7 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/torch_serve_turns.py --parent DIR [--rounds 1]
-        [--decode-dtype fp32|bf16|int8]
+        [--decode-dtype fp32|bf16|int8] [--schedules S[,S...]]
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/parent``).  Each round
@@ -22,8 +22,12 @@ device time per batch of the RS kernel, of the ingest kernel and of the
 decode's kernels.  Then, alone at b = 32 on the same pipeline's inputs,
 the median call ms (20 calls between CUDA events) of the tile-first
 ingest op and of the flat decode op at ``--decode-dtype`` (default
-fp32, the default path's), and the ingest op's host microseconds a call
-over 200 back-to-back calls.  Each turn also hashes the served results
+fp32, the default path's), of the blocked decode op at each of
+``--schedules`` (``bb<N>-ct<N>[-db]`` strings; none by default), and of
+the head kernel alone on the flat decode's partials (over 10
+back-to-back launches), the head's device ms a launch in the profiled
+pass, and the ingest op's host microseconds a call over 200
+back-to-back calls.  Each turn also hashes the served results
 (logits, messages, ok, n_corrected of every batch); the run fails unless
 every turn's hash is the same, so the two checkouts serve the same bits.
 
@@ -61,8 +65,9 @@ def host_us(fn, calls: int) -> float:
     return dt / calls * 1e6
 
 
-def call_ms(fn, iters: int = 20) -> float:
-    """Median ms of one call between CUDA events, after warm-up."""
+def call_ms(fn, iters: int = 20, reps: int = 1) -> float:
+    """Median ms of one call between CUDA events, after warm-up; with
+    ``reps`` > 1 each sample times that many back-to-back calls."""
     import torch
     for _ in range(3):
         fn()
@@ -71,24 +76,24 @@ def call_ms(fn, iters: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
-DECODE_KERNELS = ("conv_", "gap_corr", "head_kernel", "quantize_rows")
-
-
-def turn(tree: Path, dtype: str) -> dict:
+def turn(tree: Path, dtype: str, schedules=()) -> dict:
     """One turn, in this process, on ``tree``'s package."""
     sys.path.insert(0, str(tree / "src"))
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import fused_extractor as fx
     from repro_torch.launch import serve as serve_lib
     args = serve_lib.parse_args(["--batches", "3", "--batch", "32",
                                  "--img", "256", "--tile", "64",
@@ -132,7 +137,20 @@ def turn(tree: Path, dtype: str) -> dict:
     ingest_ms = call_ms(lambda: ops.fused_tile_preprocess(raw, offs, **kw))
     ingest_us = host_us(lambda: ops.fused_tile_preprocess(raw, offs, **kw),
                         200)
-    decode_ms = call_ms(lambda: ops.fused_extractor(tiles, st.packed_params))
+    pk = st.packed_params
+    decode_ms = call_ms(lambda: ops.fused_extractor(tiles, pk))
+    blocked_ms = {sc: call_ms(lambda: ops.fused_extractor(
+        tiles, pk, schedule=at.Schedule.from_string(sc)))
+        for sc in schedules}
+    # the head alone on the flat decode's partials
+    lib, rung = _build.library(), fx.RUNGS[dtype]
+    stream = torch.cuda.current_stream(raw.device).cuda_stream
+    x = tiles
+    for blk in pk["blocks"]:
+        x = fx.conv_block(lib, x, blk, rung, stream)
+    parts = fx.to_bits_partials(lib, tiles, x, pk, rung, stream)
+    head_ms = call_ms(lambda: fx.head_logits(lib, *parts, pk, rung, cfg.tile,
+                                             False, stream), reps=10)
     pipe.close()
     return {"tree": str(tree), "decode_dtype": dtype,
             "results_sha256": digest.hexdigest(), "images_per_s": ips,
@@ -144,10 +162,15 @@ def turn(tree: Path, dtype: str) -> dict:
                 lambda k: "rs_" in k and "decode" in k),
             "ingest_device_ms_per_batch": per_batch(
                 lambda k: "tile_preprocess" in k),
-            "decode_device_ms_per_batch": per_batch(
-                lambda k: any(d in k for d in DECODE_KERNELS)),
+            # summed over the decode's kernels by the parent process
+            "device_ms_per_batch_by_kernel": {
+                k: per_batch(lambda key, k=k: key == k)
+                for k in {e.key for e in rows}} if busy_ms else None,
+            "head_device_ms_per_batch": per_batch(
+                lambda k: "head_kernel" in k),
             "ingest_call_ms": ingest_ms, "ingest_host_us": ingest_us,
-            "decode_call_ms": decode_ms}
+            "decode_call_ms": decode_ms, "blocked_call_ms": blocked_ms,
+            "head_call_ms": head_ms}
 
 
 def main() -> int:
@@ -156,13 +179,20 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--decode-dtype", default="fp32",
                     choices=("fp32", "bf16", "int8"))
+    ap.add_argument("--schedules", default="",
+                    help="blocked schedules to time, comma-separated")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    schedules = [s for s in args.schedules.split(",") if s]
     if args.turn is not None:
-        print(json.dumps(turn(args.turn.resolve(), args.decode_dtype)))
+        print(json.dumps(turn(args.turn.resolve(), args.decode_dtype,
+                              schedules)))
         return 0
     if args.parent is None:
         ap.error("--parent DIR is required")
+    # this checkout's definition of the decode's kernels, for both sides
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.fused_extractor import is_decode_kernel
     parent = args.parent.resolve()
     if not (parent / "src" / "repro_torch").is_dir():
         ap.error(f"{parent} holds no src/repro_torch")
@@ -177,10 +207,14 @@ def main() -> int:
     for side, tree in order:
         out = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--turn",
-             str(tree), "--decode-dtype", args.decode_dtype], check=True,
+             str(tree), "--decode-dtype", args.decode_dtype,
+             "--schedules", args.schedules], check=True,
             capture_output=True, text=True, timeout=900,
             cwd=tree).stdout.strip().splitlines()[-1]
         res = {"side": side, **json.loads(out)}
+        by_kernel = res.pop("device_ms_per_batch_by_kernel")
+        res["decode_device_ms_per_batch"] = None if by_kernel is None else \
+            sum(ms for k, ms in by_kernel.items() if is_decode_kernel(k))
         turns.append(res)
         print(json.dumps(res))
     OUT.mkdir(parents=True, exist_ok=True)
@@ -196,8 +230,9 @@ def main() -> int:
         key: {side: [t[key] for t in turns if t["side"] == side]
               for side in ("parent", "change")}
         for key in ("median_images_per_s", "decode_call_ms",
-                    "ingest_call_ms", "ingest_host_us",
-                    "decode_device_ms_per_batch",
+                    "blocked_call_ms", "head_call_ms",
+                    "head_device_ms_per_batch", "ingest_call_ms",
+                    "ingest_host_us", "decode_device_ms_per_batch",
                     "ingest_device_ms_per_batch")}}))
     return 0
 
