@@ -17,16 +17,16 @@ In order, it
    the tile-first kernel (staged tiles equal tile-first tiles exactly),
    the blocked decode kernel on every candidate schedule and three
    explicit points against its plain version and, bitwise, against the
-   flat kernel, each ``conv_blocked_kernel`` instantiation alone on the
-   64 -> 64 layer (ms per launch at bb 1, 4 and 8, each launch's blocks
-   as the profiler traced them against SMs, ``ptxas -v`` registers,
-   spills and stack: none at fp32 and bf16),
+   flat kernel, each blocked conv instantiation alone on the 64 -> 64
+   layer (ms per launch at bb 1, 2, 4 and 8, each launch's blocks as the
+   profiler traced them against SMs, at least 256 at ct = C, ``ptxas
+   -v`` registers, spills and stack: none, at every rung),
    then an autotune sweep into
    ``build/chip_smoke/decode_schedules.json``; then the bf16 and int8
    rungs of both decode kernels at full width (flat at b=32, 1 and a
    ragged 5, blocked on every candidate and the explicit points at
-   b=32 and 5, and the serve point at b=1) against their plain
-   versions and, bitwise, blocked against flat; call ms of each and the
+   b=32, 5 and 1) against their plain versions and, bitwise, blocked
+   against flat; call ms of each and the
    ``ptxas -v`` registers and spills, and the blocked instantiations
    alone as at fp32; and a bf16 and an int8 sweep into the same
    cache, each under its own key; then the flat fp32 decode's kernels one by
@@ -56,15 +56,21 @@ In order, it
    --rs-mode cpu_sync`` (the paper's baseline), ``--mode sequential``,
    ``--decode-dtype bf16`` (flat, and blocked at ``bb4-ct32-db``, which
    must serve the flat bf16 bits), ``--decode-dtype int8`` and
-   ``--decode-dtype int8 --schedule auto`` (from the int8 sweep), the
-   decode's device ms a batch of each profiled one — checking each one's
-   launch counts and its results against the default path's (the rungs'
-   bits wherever the fp32 logit clears the rungs' margin), and prints
-   images/s for each and the ratio of the default path's median window
-   to each sequential run; the ``--decode-dtype int8`` run's launches per
-   decode kernel, matched to its profiled pass, with no quantize pass;
-   the ingest's, the head's and the RS kernel's device ms a launch and
-   the decode's a batch in the default path's profiled pass;
+   ``--decode-dtype int8 --schedule auto`` (from the int8 sweep) and
+   ``--decode-dtype int8 --schedule bb4-ct32-db`` (which must serve the
+   flat int8 bits), the decode's device ms a batch of each profiled one
+   — checking each one's launch counts and its results against the
+   default path's (the rungs' bits wherever the fp32 logit clears the
+   rungs' margin), and prints images/s for each and the ratio of the
+   default path's median window to each sequential run; the
+   ``--decode-dtype int8`` run's launches per decode kernel, matched to
+   its profiled pass, and the blocked int8 run's 9 kernels a batch; no
+   profiled pass may trace a quantize pass; the ingest's, the head's and
+   the RS kernel's device ms a launch and the decode's a batch in the
+   default path's profiled pass, the staged ingest's device ms a launch
+   in its own (with its registers and, as a yardstick the port never
+   calls, ``F.interpolate`` bilinear plus the affine on the same
+   images);
 6. checks the default and the staged path, and the bf16 and int8 rungs,
    against the JAX package's golden outputs
    (``tests/data/torch_port_golden.npz``);
@@ -327,7 +333,31 @@ def _leaves(tree):
 
 
 # -- phase 3d: full-image (staged) ingest ----------------------------------
-def phase_preprocess(dev, rng):
+INGEST_KERNEL = "tile_preprocess_kernel"  # both ingest paths' kernel
+
+
+def interpolate_yardstick_ms(raw, resize: int, crop: int):
+    """ms a call of ``F.interpolate`` (bilinear, align_corners=False, no
+    antialias) of the raw batch as float to (resize, resize), its center
+    crop and the normalising affine: a yardstick the port never calls,
+    not the same function (it takes float images, NCHW, and interpolates
+    the whole image before the crop), so no kernel's library_ms."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_preprocess as fp
+    scale, bias = (torch.as_tensor(a, device=raw.device).view(1, 3, 1, 1)
+                   for a in fp.affine(None, None))
+    x = raw.permute(0, 3, 1, 2).float()
+    off = (resize - crop) // 2
+
+    def call():
+        y = F.interpolate(x, size=(resize, resize), mode="bilinear",
+                          align_corners=False)
+        return y[:, :, off:off + crop, off:off + crop] * scale + bias
+    return call_ms(call)
+
+
+def phase_preprocess(dev, rng, regs: dict):
     import torch
     from repro_torch.core import tiling
     from repro_torch.kernels import fused_preprocess as fp
@@ -373,10 +403,19 @@ def phase_preprocess(dev, rng):
     n_bytes = 3 * b * np.unique(ry_idx).size * np.unique(rx_idx).size + \
         4 * n_out
     bound_ms, by = bound(n_bytes, 12 * n_out, PEAK_FP32_S)
-    print("preprocess: staged tiles equal tile-first tiles exactly at "
-          "every geometry")
+    from repro_torch.kernels import _build
+    r = _build.registers_of(regs, INGEST_KERNEL)
+    check(r is not None, f"{INGEST_KERNEL}: no ptxas -v line")
+    yard_ms = interpolate_yardstick_ms(raw, kw["resize"], crop)
+    print(f"preprocess: staged tiles equal tile-first tiles exactly at "
+          f"every geometry; {INGEST_KERNEL} registers {r[0]}, spill bytes "
+          f"{r[1] + r[2]}; yardstick, never called by the port: "
+          f"F.interpolate bilinear + affine {yard_ms:.4f} ms at b={b}")
     return dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by,
-                library_ms=None, **times)
+                library_ms=None, kernel=INGEST_KERNEL, registers=r[0],
+                spill_bytes=r[1] + r[2], interpolate_yardstick_ms=yard_ms,
+                **times)
+
 
 
 # -- phase 3e: blocked decode schedules + autotune --------------------------
@@ -385,19 +424,21 @@ SERVE_SCHEDULE = "bb4-ct32-db"   # the explicit blocked point the serve
 # explicit points outside the sweep: narrower channel tiles and a batch
 # block that leaves ragged blocks at b=32
 EXTRA_SCHEDULES = ("bb2-ct16", "bb3-ct8-db", "bb1-ct4")
-BLOCKED_BBS = (1, 4, 8)  # batch blocks of the per-instantiation table
+BLOCKED_BBS = (1, 2, 4, 8)  # batch blocks of the per-instantiation table
+MIN_BLOCKS = 256  # the traced grid at ct = C, b = 32, every batch block
 
 
 def blocked_kernels(dev, rng, card: str, regs: dict, dtype: str) -> dict:
     """Each ``conv_blocked_kernel`` instantiation at full width and the
     rung ``dtype``, on the decode's 64 -> 64 layer at b=32 (its input the
     blocked layer 0's output): ms per launch (``call_ms`` over 10
-    back-to-back launches) at bb 1, 4 and 8 with db on, the blocks of
-    each launch's grid as the profiler traced it, against the card's
+    back-to-back launches) at bb 1, 2, 4 and 8 with db on, the blocks
+    of each launch's grid as the profiler traced it, against the card's
     SMs, and the ``ptxas -v`` registers, spill bytes and stack bytes;
-    layer 0 (cin 3) at bb 4, ct 0.  At int8 a launch includes its
-    quantize pass.  Fails on any spill or stack at fp32 or bf16, and
-    there on a traced grid of fewer blocks than SMs."""
+    layer 0 (cin 3) at bb 4, ct 0.  Fails on any spill or stack in any
+    instantiation of the rung's blocked conv (every width, channel tile
+    and input width), on a traced grid of fewer blocks than SMs, and at
+    ct = C on one of fewer than ``MIN_BLOCKS``."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_extractor as fx
@@ -420,19 +461,28 @@ def blocked_kernels(dev, rng, card: str, regs: dict, dtype: str) -> dict:
     traced = traced_grids(lambda: [launch(bb, ct) for ct in cts
                                    for bb in BLOCKED_BBS],
                           f"{dtype}_blocked_grids")
+    family = fx.conv_kernel_name(rung, C, C, C).split("<")[0] + "<"
+    if rung != fx.INT8:
+        family += fx.conv_kernel_name(rung, C, C, C).split("<")[1].split(
+            ",")[0] + ","
+    every = {k: v for k, v in regs.items() if family in k.replace(" ", "")}
+    check(len(every) == 24 and all(v[1:] == (0, 0, 0, 0)
+                                   for v in every.values()),
+          f"{dtype} blocked conv: {len(every)} instantiations, spills or "
+          f"stack in {[k for k, v in every.items() if any(v[1:])]}")
     rows = []
     for ct in cts:
         kernel = fx.conv_kernel_name(rung, C, C, ct)
         r = _build.registers_of(regs, kernel)
         check(r is not None, f"{kernel}: no ptxas -v line")
-        check(dtype == "int8" or r[1] == r[2] == r[3] == r[4] == 0,
+        check(r[1] == r[2] == r[3] == r[4] == 0,
               f"{kernel}: ptxas -v shows spills or stack: {r}")
         grids = [g for k, g in traced if kernel in k]
         blocks = dict(zip(BLOCKED_BBS, grids)) \
             if len(grids) == len(BLOCKED_BBS) else None
-        check(dtype == "int8" or blocks is None or
-              min(blocks.values()) >= sms,
-              f"{kernel}: a traced grid below {sms} blocks: {blocks}")
+        least = MIN_BLOCKS if ct == C else sms
+        check(blocks is None or min(blocks.values()) >= least,
+              f"{kernel}: a traced grid below {least} blocks: {blocks}")
         rows.append(dict(
             kernel=kernel, ct=ct, registers=r[0], spill_bytes=r[1] + r[2],
             stack_bytes=r[3] + r[4],
@@ -444,9 +494,7 @@ def blocked_kernels(dev, rng, card: str, regs: dict, dtype: str) -> dict:
     print(f"  {dtype} conv_blocked_kernel instantiations, {C} -> {C} at "
           f"b=32 (ms per launch at bb {'/'.join(map(str, BLOCKED_BBS))}, "
           f"db; traced blocks at those bb on {sms} SMs; registers / spill "
-          f"bytes / stack bytes)"
-          f"{' with the quantize pass' if dtype == 'int8' else ''}"
-          f", on {card}:")
+          f"bytes / stack bytes), on {card}:")
     for r in rows:
         blocks = "not measured" if r["blocks_by_bb"] is None else \
             " / ".join(str(r["blocks_by_bb"][bb]) for bb in BLOCKED_BBS)
@@ -454,8 +502,13 @@ def blocked_kernels(dev, rng, card: str, regs: dict, dtype: str) -> dict:
               + " / ".join(f"{r['ms_by_bb'][bb]:.4f}" for bb in BLOCKED_BBS)
               + f" ms; blocks {blocks}; {r['registers']} / "
                 f"{r['spill_bytes']} / {r['stack_bytes']}")
-    print(f"    layer 0 (3 -> {C}) at bb4-ct0: {layer0_ms:.4f} ms")
-    return dict(sms=sms, kernels=rows, layer0_bb4_ct0_ms=layer0_ms)
+    print(f"    layer 0 (3 -> {C}) at bb4-ct0: {layer0_ms:.4f} ms; all "
+          f"{len(every)} instantiations (cout 16/32/64, every ct, cin 3 or "
+          f"cout) 0 spill and 0 stack, at most "
+          f"{max(v[0] for v in every.values())} registers")
+    return dict(sms=sms, kernels=rows, layer0_bb4_ct0_ms=layer0_ms,
+                instantiations_checked=len(every),
+                max_registers=max(v[0] for v in every.values()))
 
 
 def phase_blocked(dev, rng, card: str, regs: dict):
@@ -579,7 +632,7 @@ def phase_rungs(dev, rng, card: str, cache, regs: dict):
     """Both decode kernels at bf16 and int8, full width: flat against its
     plain version at b=32, 1 and 5; blocked against its plain version
     and bitwise against flat on every candidate and the explicit points
-    at b=32 and 5, the serve point also at b=1; call ms (median of 20)
+    at b=32, 5 and 1; call ms (median of 20)
     of every schedule at b=32, the plain versions' ms, the bounds at the
     rung's peak.  Then a bf16 and an int8 autotune sweep into the same
     cache, each under its own key, and "auto" at each resolving from
@@ -608,7 +661,7 @@ def phase_rungs(dev, rng, card: str, cache, regs: dict):
                   f"{dtype} flat b={b}: the embedding output moved logits")
             err["flat"] = max(err["flat"], _hold_rung(
                 flat, want, f"{dtype} flat b={b}"))
-            for sc in (scheds if b != 1 else [serve_sc]):
+            for sc in scheds:
                 kw = dict(batch_block=sc.batch_block,
                           channel_tile=sc.channel_tile,
                           double_buffer=sc.double_buffer)
@@ -652,7 +705,7 @@ def phase_rungs(dev, rng, card: str, cache, regs: dict):
               f"{err['blocked']:.3g} of their plain versions (tol "
               f"{RUNG_ATOL}) at b=32, 1 and 5; blocked bitwise equal to "
               f"flat on {len(scheds)} schedules (every candidate, "
-              f"{', '.join(EXTRA_SCHEDULES)}); on {card}:")
+              f"{', '.join(EXTRA_SCHEDULES)}) at each b; on {card}:")
         for k in ("fused_extractor", "fused_extractor_blocked"):
             print(f"  {k}: {r[k]['ms']:.4f} ms, plain {r[k]['plain_ms']:.4f}"
                   f" ms, bound {r[k]['bound_ms']:.3g} ms ({by}), batch 32")
@@ -660,7 +713,7 @@ def phase_rungs(dev, rng, card: str, cache, regs: dict):
             f"{n} {ms:.4f}" for n, ms in sorted(sched_ms.items(),
                                                key=lambda kv: kv[1])))
         tags = {"bf16": ("RBF16", "__nv_bfloat16"),
-                "int8": ("RI8", "quantize_rows", "imma_kernel")}[dtype]
+                "int8": ("imma_kernel",)}[dtype]
         mine = {k: v for k, v in regs.items() if any(t in k for t in tags)}
         print("  registers / spill stores / spill loads: " + "; ".join(
             f"{k.replace('qr::', '').replace('void ', '')} {v[0]}/{v[1]}/"
@@ -1169,6 +1222,8 @@ def profile_path(pipe, batches, card: str, name: str = "serve"):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+    quant = [e.key for e in rows if "quantize" in e.key]
+    check(not quant, f"profile {name}: a quantize pass ran: {quant}")
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     prof.export_chrome_trace(str(OUT / f"{name}_trace.json"))
     if busy_ms == 0:
@@ -1188,8 +1243,8 @@ def profile_path(pipe, batches, card: str, name: str = "serve"):
 
 def decode_device_ms(traced, n_batches: int):
     """Device ms a batch of the decode's CUDA kernels (convs, to_bits,
-    head, quantize pass) in a profiled pass, or None where none was
-    traced (the plain decode launches none of them)."""
+    head) in a profiled pass, or None where none was traced (the plain
+    decode launches none of them)."""
     from repro_torch.kernels.fused_extractor import is_decode_kernel
     hits = [ms for k, (_, ms) in (traced or {}).items()
             if is_decode_kernel(k)]
@@ -1229,6 +1284,36 @@ def serve_config(flags, batches, card: str, profile: str = ""):
     return rep, results, counts, kernel_counts, traced
 
 
+def check_blocked_int8_launches(kernel_counts, traced, n_batches: int):
+    """The ``--decode-dtype int8 --schedule SERVE_SCHEDULE`` run's decode
+    kernels (``ops.kernel_launch_counts``): 9 a batch, the blocked layer 0
+    once, the blocked 64 -> 64 conv depth - 1 times, the flat to_bits and
+    the head once, no quantize pass; where its profiled pass saw device
+    time, its trace shows each as often."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import fused_extractor as fx
+    C, r = WIDTH["channels"], fx.INT8
+    ct = at.Schedule.from_string(SERVE_SCHEDULE).channel_tile or C
+    want = {fx.conv_kernel_name(r, 3, C, ct): n_batches,
+            fx.conv_kernel_name(r, C, C, ct): (WIDTH["depth"] - 1) * n_batches,
+            fx.to_bits_kernel_name(r, C, WIDTH["n_bits"]): n_batches,
+            fx.head_kernel_name(r, WIDTH["n_bits"]): n_batches}
+    check(kernel_counts == want and
+          sum(want.values()) == (WIDTH["depth"] + 2) * n_batches,
+          f"int8 at {SERVE_SCHEDULE}: decode kernels launched "
+          f"{kernel_counts}, expected {want}")
+    for kernel, count in want.items():
+        seen = sum(c for k, (c, _) in (traced or {}).items()
+                   if f"::{kernel}(" in k)
+        check(not traced or seen == count,
+              f"{kernel}: the int8 {SERVE_SCHEDULE} pass traced {seen} "
+              f"launches, the counter {count}")
+    print(f"int8 at {SERVE_SCHEDULE}, {n_batches} batches: "
+          f"{WIDTH['depth'] + 2} decode kernels a batch, no quantize pass "
+          f"{json.dumps(want)}"
+          + ("; the profiled pass traced the same" if traced else ""))
+
+
 def phase_configs(batches, default_results, default_ips, cache, winner,
                   winner8, card: str, parts8):
     """Each configuration of the second slice on the default path's 3
@@ -1238,7 +1323,8 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
     qrmark side of the ratios to the sequential baseline.  The int8
     configuration's run sets ``parts8``' launches
     (:func:`check_part_launches`: its decode kernels, matched to its
-    profiled pass, and no quantize pass)."""
+    profiled pass, and no quantize pass), the blocked int8 run's are
+    checked by :func:`check_blocked_int8_launches`."""
     n = len(batches)
     zero = dict(fused_tile_preprocess=0, fused_preprocess=0,
                 fused_extractor=0, fused_extractor_blocked=0, rs_decode=0)
@@ -1280,6 +1366,10 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
                        "--autotune-cache", str(cache)],
          {"fused_tile_preprocess": n, auto8_kernel: n, "rs_decode": n},
          "rung"),
+        ("int8-blocked", ["--decode-dtype", "int8", "--schedule",
+                          SERVE_SCHEDULE],
+         dict(fused_tile_preprocess=n, fused_extractor_blocked=n,
+              rs_decode=n), "rung"),
     ]
     out = {}
     for name, flags, want, relation in configs:
@@ -1287,11 +1377,13 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
             flags, batches, card,
             profile=name if name in ("staged", "blocked",
                                      "sequential-device", "bf16",
-                                     "bf16-blocked", "int8",
-                                     "int8-auto") else "")
+                                     "bf16-blocked", "int8", "int8-auto",
+                                     "int8-blocked") else "")
         if name == "int8":
             check_part_launches(parts8, kernel_counts, traced, n,
                                 path="--decode-dtype int8 path")
+        if name == "int8-blocked":
+            check_blocked_int8_launches(kernel_counts, traced, n)
         check(counts == {**zero, **want},
               f"{name}: launches {counts}, expected {({**zero, **want})}")
         check(rep.images == 32 * n, f"{name}: served {rep.images} images")
@@ -1323,7 +1415,8 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
                           f"{name}: {k} differs from the fp32 path on a "
                           f"margined row")
         # a blocked schedule serves its rung's flat bits
-        flat_of = {"int8-auto": "int8", "bf16-blocked": "bf16"}.get(name)
+        flat_of = {"int8-auto": "int8", "int8-blocked": "int8",
+                   "bf16-blocked": "bf16"}.get(name)
         if flat_of:
             for r, f in zip(results, out[flat_of]["results"]):
                 for k in ("logits", "message_bits", "ok", "n_corrected"):
@@ -1333,6 +1426,11 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
         out[name] = dict(images_per_s=rep.throughput_ips, launches=counts,
                          flags=flags,
                          decode_device_ms=decode_device_ms(traced, n))
+        if name == "staged":  # the staged ingest's device ms a launch
+            hits = [v for k, v in (traced or {}).items()
+                    if f"::{INGEST_KERNEL}(" in k]
+            out[name]["ingest_device_ms"] = (hits[0][1] / hits[0][0]
+                                             if hits else None)
         if out[name]["decode_device_ms"] is not None:
             print(f"  {name}: the decode's kernels take "
                   f"{out[name]['decode_device_ms']:.4f} ms of device time "
@@ -1347,7 +1445,7 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
                   f"equal to fp32's on the {int(sure.sum())} of "
                   f"{sure.size} with |fp32 logit| > {RUNG_MARGIN}; "
                   f"{int(sure.all(axis=1).sum())} rows margined whole")
-    for name in ("bf16", "bf16-blocked", "int8", "int8-auto"):
+    for name in ("bf16", "bf16-blocked", "int8", "int8-auto", "int8-blocked"):
         del out[name]["results"]
     for name in ("sequential", "sequential-device"):
         ips = out[name]["images_per_s"]
@@ -1451,7 +1549,7 @@ def main() -> int:
     phases = {"fused_tile_preprocess": phase_ingest(dev, rng),
               "fused_extractor": phase_extractor(dev, rng),
               "rs_decode": phase_rs(dev, rng, card, regs),
-              "fused_preprocess": phase_preprocess(dev, rng)}
+              "fused_preprocess": phase_preprocess(dev, rng, regs)}
     phases["fused_extractor_blocked"], cache, winner = phase_blocked(
         dev, rng, card, regs)
     rungs, winner8 = phase_rungs(dev, rng, card, cache, regs)
@@ -1479,7 +1577,7 @@ def main() -> int:
     print(f"{head['kernel']}: {head['serve_device_ms']} ms of device time a "
           f"launch, the decode {phases['fused_extractor']['serve_device_ms']}"
           f" ms a batch, in the default path's profiled pass, on {card}")
-    for name, kernel in (("fused_tile_preprocess", "tile_preprocess_kernel"),
+    for name, kernel in (("fused_tile_preprocess", INGEST_KERNEL),
                          ("rs_decode", RS_KERNEL)):
         hits = [v for k, v in (traced or {}).items() if f"::{kernel}(" in k]
         phases[name]["serve_device_ms"] = (hits[0][1] / hits[0][0]
@@ -1489,6 +1587,11 @@ def main() -> int:
     configs = phase_configs(batches, results,
                             statistics.median(window_ips), cache, winner,
                             winner8, card, parts8)
+    phases["fused_preprocess"]["serve_device_ms"] = \
+        configs["staged"]["ingest_device_ms"]
+    print(f"fused_preprocess: {phases['fused_preprocess']['serve_device_ms']}"
+          f" ms of device time a launch in the staged path's profiled pass, "
+          f"on {card}")
     phase_golden()
     phases["rs_decode"]["device_ms"] = rs_device_ms(dev, rng, card)
 
@@ -1526,7 +1629,7 @@ def main() -> int:
         "fused_extractor_blocked": {
             "bf16": configs["bf16-blocked"]["launches"][
                 "fused_extractor_blocked"],
-            "int8": configs["int8-auto"]["launches"][
+            "int8": configs["int8-blocked"]["launches"][
                 "fused_extractor_blocked"]}}
     kernels = []
     for name, (src, rep) in meta.items():
@@ -1544,8 +1647,13 @@ def main() -> int:
                 "kernel", "device_ms", "serve_device_ms", "registers",
                 "stack_bytes", "cumulative_stack_bytes", "spill_bytes",
                 "large_b")})
-        if name in ("fused_tile_preprocess", "fused_extractor"):
+        if name in ("fused_tile_preprocess", "fused_extractor",
+                    "fused_preprocess"):
             entry["serve_device_ms"] = phases[name]["serve_device_ms"]
+        if name == "fused_preprocess":
+            entry.update({k: phases[name][k] for k in (
+                "kernel", "registers", "spill_bytes",
+                "interpolate_yardstick_ms")})
         if name == "fused_extractor_blocked":
             # each blocked conv instantiation alone, and the decode's
             # device ms a batch on the serve schedule's profiled pass
@@ -1567,12 +1675,12 @@ def main() -> int:
                         configs[dt]["decode_device_ms"]
             else:
                 for dt, cfg in (("bf16", "bf16-blocked"),
-                                ("int8", "int8-auto")):
+                                ("int8", "int8-blocked")):
                     entry["by_rung"][dt].update(
                         instantiations=rungs[dt][name]["instantiations"],
-                        serve_device_ms=(configs[cfg]["decode_device_ms"]
-                                         if rung_launches[name][dt]
-                                         else None))
+                        serve_device_ms=configs[cfg]["decode_device_ms"])
+                entry["by_rung"]["int8"]["source"] = \
+                    "src/repro_torch/kernels/csrc/fused_extractor_int8.cu"
         kernels.append(entry)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phases": phases,

@@ -35,19 +35,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
 # C entry points: argument types (every pointer and the stream as
 # c_void_p, or ctypes would pass them as 32-bit ints); each returns the
 # cudaGetLastError() of its launch.
 SIGNATURES: Dict[str, List] = {
     "qr_tile_preprocess": [_P] * 4 + [_I] * 6 + [_P],
-    "qr_preprocess": [_P] * 8 + [_I] * 4 + [_P],
-    "qr_conv3x3_norm_relu": [_P] * 6 + [_I] * 5 + [_P],
-    "qr_conv3x3_norm_relu_blocked": [_P] * 6 + [_I] * 8 + [_P],
-    "qr_conv3x3_gap_corr": [_P] * 9 + [_I] * 6 + [_P],
+    "qr_preprocess": [_P] * 3 + [_I] * 4 + [_P],
+    "qr_conv3x3_norm_relu": [_P] * 4 + [_I] * 5 + [_P],
+    "qr_conv3x3_norm_relu_blocked": [_P] * 4 + [_I] * 8 + [_P],
+    "qr_conv3x3_gap_corr": [_P] * 7 + [_I] * 6 + [_P],
     "qr_extractor_head": [_P] * 7 + [_I] * 5 + [_P],
-    "qr_quantize_rows_int8": [_P] * 3 + [_L, _I, _P],
     "qr_conv3x3_imma": [_P] * 7 + [_I] * 4 + [_P],
+    "qr_conv3x3_imma_blocked": [_P] * 8 + [_I] * 7 + [_P],
     "qr_conv3x3_gap_corr_imma": [_P] * 9 + [_I] * 5 + [_P],
     "qr_rs_decode": [_P] * 5 + [_I] + [_P],
 }

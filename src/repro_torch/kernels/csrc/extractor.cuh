@@ -45,12 +45,12 @@
 // Layer 0 (cin = 3) is bound by bytes: 35 MB (its 64-channel output) at
 // 3.35 TB/s, 0.0105 ms.  The fp32 rung runs on FFMA, bf16 runs the fp32
 // FFMA chain on rounded operands (its tensor-core bound, 989 TFLOP/s, is
-// not used yet); the int8 flat rung takes its tap dots on the int8 tensor
+// not used yet); the int8 rung takes its tap dots on the int8 tensor
 // cores (1979 TOP/s), see fused_extractor_int8.cu.
 //
 // Activations go through global memory between layers: fp32 at the fp32
-// and bf16 rungs and on the blocked schedule; int8 words and one fp32
-// scale a pixel on the int8 flat schedule.  One image's fp32 activation
+// and bf16 rungs; int8 words and one fp32 scale a pixel at the int8 rung,
+// on both schedules.  One image's fp32 activation
 // is 1 MiB at l=64, C=64, more than an SM's 227 KB of shared memory, so
 // the TPU's whole-forward-per-step fusion does not carry over.  One
 // direct-conv kernel per layer, then to_bits (which also reduces its
@@ -94,18 +94,10 @@
 // per SM.  Layer 0 (cin = 3) runs the same engine; its work is small and
 // its output bytes bound it.
 //
-// int8 flat: the tensor-core kernels of fused_extractor_int8.cu
-// (`conv_imma_kernel`, `gap_corr_imma_kernel`), which quantize each
-// layer's output in their epilogue.  The int8 blocked schedule keeps the
-// first design: a small pass (`quantize_rows_kernel`) quantizes each
-// layer's fp32 input once per pixel (int8 values, four input channels to
-// a 32-bit word, layer 0 padding 3 -> 4 with a zero, and one fp32 scale
-// s = max(amax, 1e-8) * float(1/127) per pixel, q = rint(x / s) clipped
-// to +-127: the jitted reference multiplies by the reciprocal for the
-// scale and divides for q), and its to_bits is `conv_gap_corr_kernel<RI8>`
-// (one thread per pixel of an 8x16 tile, weights re-laid into the same
-// four-channel words one tap at a time, __dp4a).  A padding pixel has
-// q = 0, so its tap adds (0 * s) * w_scale = 0.
+// int8: the tensor-core kernels of fused_extractor_int8.cu, flat
+// (`conv_imma_kernel`, `gap_corr_imma_kernel`) and blocked
+// (`conv_blocked_imma_kernel`), which quantize each layer's output in
+// their epilogue, so no int8 path runs a quantize pass.
 //
 // Blocked schedule, `conv_blocked_kernel`: the same forward re-blocked by
 // a schedule (batch block bb, output-channel tile ct, double_buffer) whose
@@ -113,8 +105,7 @@
 // schedule sizes VMEM scratch and grid steps; here it sets how often a
 // block stages a weight slice and which images share it.  The to_bits
 // conv, GAP, correlation and head run the flat schedule's kernels (n_bits
-// is always one full-width tile, as in the reference), at int8
-// `conv_gap_corr_kernel<RI8>` after the quantize pass.
+// is always one full-width tile, as in the reference).
 //
 // fp32 and bf16 (`conv_blocked_rt`) run the flat kernels' register-tiled
 // engine: `rt_tap` on a halo of pitch rt_pitch(cin), rounded to bf16 in
@@ -153,14 +144,7 @@
 // A ragged batch (bb not dividing b) leaves slots of the last block idle:
 // the reference computes zero pad rows and slices them off, which leaves
 // the real rows the same.
-//
-// int8 (`conv_blocked_i8`) keeps the first design: a 16x16 pixel tile (256
-// threads, one a pixel) of bb images in turn; per channel tile the slice of
-// all nine taps is staged once (synchronously, as four-channel words, so
-// db only changes the order of the staging) and the nine taps of an image
-// run `tap_fold`'s __dp4a chain without a barrier.  It stays bitwise the
-// flat int8 kernels at every channel tile (the reference is only ulp-close
-// there): its dot is exact and its dequantize is per column.
+
 #pragma once
 
 #include <cuda_bf16.h>
@@ -172,33 +156,20 @@
 namespace qr {
 
 // ---- rungs -------------------------------------------------------------
-// W: a packed conv weight in global memory; SW: the same weight staged in
-// shared memory; X: one halo element (an input channel, or for int8 a word
-// of four); H: the head / correlation operands.
+// The fp32 and bf16 rungs of the register-tiled engine (the int8 rung is
+// fused_extractor_int8.cu's).  W: a packed conv weight in global memory;
+// SW: the same weight staged in shared memory; H: the head / correlation
+// operands (the int8 rung's head is fp32's).
 struct RF32 {
   using W = float;
   using SW = float;
-  using X = float;
   using H = float;
-  static constexpr int KPACK = 1;  // input channels per halo element
 };
 struct RBF16 {
   using W = __nv_bfloat16;
   using SW = __nv_bfloat16;
-  using X = float;  // bf16-rounded
   using H = __nv_bfloat16;
-  static constexpr int KPACK = 1;
 };
-struct RI8 {
-  using W = int8_t;
-  using SW = int;  // four int8 weights of consecutive input channels
-  using X = int;   // four int8 activations of consecutive input channels
-  using H = float;
-  static constexpr int KPACK = 4;
-};
-
-constexpr float kInvQmax = 0x1.020408p-7f;  // float(1/127)
-constexpr float kQEps = 1e-8f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -227,159 +198,8 @@ __device__ __forceinline__ float4 load_w4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// halo elements per pixel for cin input channels
-template <class R>
-__host__ __device__ __forceinline__ int halo_words(int cin) {
-  return (cin + R::KPACK - 1) / R::KPACK;
-}
-
-// int8 blocked to_bits: an 8x16 tile, one thread per pixel.  TH x TW is
-// also the tile of the GAP and correlation partials at every rung.
-constexpr int TH = 8, TW = 16, NPIX = TH * TW;
-constexpr int HWD = TW + 2, NHALO = (TH + 2) * HWD;
-constexpr int BTH = 16, BTW = 16, BNPIX = BTH * BTW;  // int8 blocked
-constexpr int BHWD = BTW + 2, BNHALO = (BTH + 2) * BHWD;
-
-// The int8 kernels of the first design (blocked conv, blocked to_bits):
-// the layer input for the (PH + 2) x (PW + 2) halo of the PH x PW pixel
-// tile at (y0, x0) of image img, zero outside the image:
-// s_in[k * NH + p] = word k of halo pixel p.  x holds the quantized words
-// (b, l, l, cw), xs the per-pixel scales, which land in s_sc[p].
-template <class R, int PH, int PW>
-__device__ __forceinline__ void load_halo(const void* __restrict__ xv,
-                                          const float* __restrict__ xs,
-                                          typename R::X* s_in, float* s_sc,
-                                          long long img, int y0, int x0,
-                                          int l, int cin) {
-  static_assert(std::is_same<R, RI8>::value, "fp32 / bf16: rt_load_halo");
-  using X = typename R::X;
-  constexpr int HW_ = PW + 2, NH = (PH + 2) * (PW + 2);
-  const int cw = halo_words<R>(cin);
-  const X* xi = static_cast<const X*>(xv) + img * l * l * cw;
-  for (int e = threadIdx.x; e < NH * cw; e += blockDim.x) {
-    const int k = e % cw, p = e / cw;
-    const int gy = y0 + p / HW_ - 1, gx = x0 + p % HW_ - 1;
-    X v = 0;
-    if (gy >= 0 && gy < l && gx >= 0 && gx < l)
-      v = xi[((long long)gy * l + gx) * cw + k];
-    s_in[k * NH + p] = v;
-  }
-  const float* si = xs + img * l * l;
-  for (int p = threadIdx.x; p < NH; p += blockDim.x) {
-    const int gy = y0 + p / HW_ - 1, gx = x0 + p % HW_ - 1;
-    // a padding row: amax 0, so the reference's scale, and q = 0
-    s_sc[p] = (gy >= 0 && gy < l && gx >= 0 && gx < l)
-                  ? si[(long long)gy * l + gx]
-                  : __fmul_rn(kQEps, kInvQmax);
-  }
-}
-
-// int8 weight staging: taps [tap0, tap0 + ntaps), output columns
-// [col0, col0 + ncols) of the packed (9 * cin, cout) weight w ->
-// s_w[((tap - tap0) * cw + k) * ncols + c], the four input channels
-// 4k..4k+3 of a column in one word (zero past cin).
-template <class R>
-__device__ __forceinline__ void stage_slice(const typename R::W* __restrict__ w,
-                                            typename R::SW* s_w, int cin,
-                                            int cout, int tap0, int ntaps,
-                                            int col0, int ncols) {
-  static_assert(std::is_same<R, RI8>::value, "fp32 / bf16: stage_rows");
-  const int cw = halo_words<R>(cin);
-  for (int e = threadIdx.x; e < ntaps * cw * ncols; e += blockDim.x) {
-    const int c = e % ncols, r = e / ncols;
-    const long long row = (long long)(tap0 + r / cw) * cin;
-    const int k = r % cw;
-    unsigned word = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ci = 4 * k + j;
-      if (ci < cin)
-        word |= (unsigned)(uint8_t)w[(row + ci) * cout + col0 + c]
-                << (8 * j);
-    }
-    s_w[e] = (int)word;
-  }
-}
-
-// The int8 tap primitive of the first design (the blocked conv and
-// to_bits kernels): one tap's dot for N output channels at this thread's
-// pixel, dequantized and folded left into acc ([ky, kx] order; tap 0
-// starts the sum), the chain of the int8 tensor-core kernels.
-//   sp     the pixel's word 0 in the halo, planes nh apart;
-//   wt     the tap's staged weights, (cw, N);
-//   sx     the input pixel's scale; s_scale: the N column scales.
-template <class R, int N>
-__device__ __forceinline__ void tap_fold(const typename R::X* sp, int nh,
-                                         const typename R::SW* wt, int cw,
-                                         float sx, const float* s_scale,
-                                         int tap, float (&acc)[N]) {
-  static_assert(std::is_same<R, RI8>::value, "fp32 / bf16: rt_tap");
-  static_assert(N % 4 == 0, "output channels come in fours");
-  int part[N];
-#pragma unroll
-  for (int co = 0; co < N; ++co) part[co] = 0;
-#pragma unroll 2
-  for (int k = 0; k < cw; ++k) {
-    const int xv = sp[k * nh];
-    const int4* w4 = reinterpret_cast<const int4*>(wt + k * N);
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-      const int4 wv = w4[q];
-      part[4 * q + 0] = __dp4a(xv, wv.x, part[4 * q + 0]);
-      part[4 * q + 1] = __dp4a(xv, wv.y, part[4 * q + 1]);
-      part[4 * q + 2] = __dp4a(xv, wv.z, part[4 * q + 2]);
-      part[4 * q + 3] = __dp4a(xv, wv.w, part[4 * q + 3]);
-    }
-  }
-  // |part| < 2^24 (at most cin * 127^2), so the conversion is exact
-#pragma unroll
-  for (int co = 0; co < N; ++co) {
-    const float d =
-        __fmul_rn(__fmul_rn(__int2float_rn(part[co]), sx), s_scale[co]);
-    acc[co] = tap == 0 ? d : __fadd_rn(acc[co], d);
-  }
-}
-
-// Shared memory of conv_gap_corr_kernel: one tap's weights (cw, N), the
-// halo (NHALO, cw) and, for int8, the halo's scales and the N column
-// scales.  Offsets in bytes; every region starts 16-byte aligned.
-template <class R>
-struct FlatSmem {
-  int w, in, sc, scale, end;
-  __host__ __device__ FlatSmem(int cin, int n) {
-    const int cw = halo_words<R>(cin);
-    w = 0;
-    in = w + ((cw * n * (int)sizeof(typename R::SW) + 15) & ~15);
-    sc = in + NHALO * cw * (int)sizeof(typename R::X);
-    scale = sc + (R::KPACK > 1 ? ((NHALO * 4 + 15) & ~15) : 0);
-    end = scale + (R::KPACK > 1 ? n * 4 : 0);
-  }
-};
-
-// The nine taps of conv_gap_corr_kernel's pixel: per tap, stage its
-// weights, then tap_fold.
-template <class R, int N>
-__device__ __forceinline__ void conv_taps(const typename R::W* __restrict__ w,
-                                          const float* __restrict__ wscale,
-                                          char* smem, const FlatSmem<R>& sm,
-                                          int cin, int py, int px,
-                                          float (&acc)[N]) {
-  auto* s_w = reinterpret_cast<typename R::SW*>(smem + sm.w);
-  const auto* s_in = reinterpret_cast<const typename R::X*>(smem + sm.in);
-  const float* s_sc = reinterpret_cast<const float*>(smem + sm.sc);
-  float* s_scale = reinterpret_cast<float*>(smem + sm.scale);
-  if constexpr (R::KPACK > 1)
-    for (int c = threadIdx.x; c < N; c += blockDim.x) s_scale[c] = wscale[c];
-  const int cw = halo_words<R>(cin);
-  for (int tap = 0; tap < 9; ++tap) {
-    __syncthreads();  // halo loaded / previous tap's weights consumed
-    stage_slice<R>(w, s_w, cin, N, tap, 1, 0, N);
-    __syncthreads();
-    const int off = (py + tap / 3) * HWD + (px + tap % 3);
-    const float sx = R::KPACK > 1 ? s_sc[off] : 0.f;
-    tap_fold<R, N>(s_in + off, NHALO, s_w, cw, sx, s_scale, tap, acc);
-  }
-}
+// The GAP and correlation partials' pixel tile, TH x TW, at every rung.
+constexpr int TH = 8, TW = 16;
 
 // The hidden block's epilogue on one pixel: + bias, channel_norm
 // (population variance, sums in channel order), ReLU; store(q, v) takes
@@ -424,81 +244,6 @@ __device__ __forceinline__ void norm_relu(Pre pre,
   norm_relu_to<COUT>(pre, bias, [o4](int q, float4 v) { o4[q] = v; });
 }
 
-// to_bits at int8 on the blocked schedule (the first design of the flat
-// kernels, kept there; the flat schedule's int8 to_bits is the tensor-core
-// `gap_corr_imma_kernel`, fused_extractor_int8.cu): conv + bias, reduced
-// over the 8x16 tile's pixels into a GAP partial; with the correlation
-// bank, also the tile's highpass(tiles) . corr partial.  Partials are
-// (b * tiles, NB), tile-major within an image.  One thread per pixel,
-// one tap's weights staged at a time, __dp4a.
-template <class R, int NB>
-__global__ void __launch_bounds__(NPIX)
-conv_gap_corr_kernel(const void* __restrict__ x, const float* __restrict__ xs,
-                     const typename R::W* __restrict__ w,
-                     const float* __restrict__ wscale,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ tiles_in,
-                     const typename R::H* __restrict__ corr,
-                     float* __restrict__ part_gap,
-                     float* __restrict__ part_corr, int l, int cin,
-                     int has_corr) {
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  const FlatSmem<R> sm(cin, NB);
-  float* s_red = reinterpret_cast<float*>(smem + ((sm.end + 15) & ~15));
-  const int tiles_x = l / TW, tiles = (l / TH) * tiles_x;
-  const long long img = blockIdx.x / tiles;
-  const int t = blockIdx.x % tiles;
-  const int y0 = (t / tiles_x) * TH, x0 = (t % tiles_x) * TW;
-  const int py = threadIdx.x / TW, px = threadIdx.x % TW;
-  load_halo<R, TH, TW>(x, xs, reinterpret_cast<typename R::X*>(smem + sm.in),
-                       reinterpret_cast<float*>(smem + sm.sc), img, y0, x0,
-                       l, cin);
-  float acc[NB];
-  conv_taps<R, NB>(w, wscale, smem, sm, cin, py, px, acc);
-#pragma unroll
-  for (int co = 0; co < NB; ++co)
-    s_red[threadIdx.x * (NB + 1) + co] = __fadd_rn(acc[co], bias[co]);
-  __syncthreads();
-  for (int co = threadIdx.x; co < NB; co += blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < NPIX; ++p) s = __fadd_rn(s, s_red[p * (NB + 1) + co]);
-    part_gap[(long long)blockIdx.x * NB + co] = s;
-  }
-  if (!has_corr) return;
-  // highpass = tiles - box3x3(tiles): the nine zero-padded views folded
-  // left in [ky, kx] order, times float(1/9) (the reference multiplies),
-  // then rounded to the correlation bank's precision
-  float* s_hp = reinterpret_cast<float*>(smem);  // the weights are done
-  __syncthreads();
-  const float* ti = tiles_in + img * l * l * 3;
-  const int gy = y0 + py, gx = x0 + px;
-  for (int c = 0; c < 3; ++c) {
-    float box = 0.f;
-    for (int tap = 0; tap < 9; ++tap) {
-      const int sy = gy + tap / 3 - 1, sx = gx + tap % 3 - 1;
-      float v = 0.f;
-      if (sy >= 0 && sy < l && sx >= 0 && sx < l)
-        v = ti[((long long)sy * l + sx) * 3 + c];
-      box = tap == 0 ? v : __fadd_rn(box, v);
-    }
-    const float center = ti[((long long)gy * l + gx) * 3 + c];
-    s_hp[threadIdx.x * 3 + c] = round_to<typename R::H>(
-        __fsub_rn(center, __fmul_rn(box, 1.0f / 9.0f)));
-  }
-  __syncthreads();
-  for (int n = threadIdx.x; n < NB; n += blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < NPIX; ++p) {
-      const long long gp = (long long)(y0 + p / TW) * l + x0 + p % TW;
-      const typename R::H* cp = corr + (gp * NB + n) * 3;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) s = fmaf(s_hp[p * 3 + c], to_f(cp[c]), s);
-    }
-    part_corr[(long long)blockIdx.x * NB + n] = s;
-  }
-}
-
 // ---- cp.async ------------------------------------------------------------
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -516,102 +261,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ---- blocked schedule, int8: the first design (see the header) -----------
-// Shared memory: one or two weight slices of (9 * cw, CT) words, the halo
-// (BNHALO, cw), the halo's scales and the CT column scales.  Offsets in
-// bytes, 16-byte aligned regions.
-template <int CT>
-struct BlockedSmem {
-  int wsz, w, in, sc, scale, end;
-  __host__ __device__ BlockedSmem(int cin, bool two) {
-    const int cw = halo_words<RI8>(cin);
-    wsz = 9 * cw * CT;  // words of one slice
-    w = 0;
-    in = w + (((two ? 2 : 1) * wsz * (int)sizeof(int) + 15) & ~15);
-    sc = in + BNHALO * cw * (int)sizeof(int);
-    scale = sc + ((BNHALO * 4 + 15) & ~15);
-    end = scale + CT * 4;
-  }
-};
-
-// One hidden block at int8: grid ceil(b / bb) * (l / 16)^2, 256 threads.
-template <int COUT, int CT>
-__device__ __forceinline__ void conv_blocked_i8(
-    const void* __restrict__ x, const float* __restrict__ xs,
-    const int8_t* __restrict__ w, const float* __restrict__ wscale,
-    const float* __restrict__ bias, float* __restrict__ out, int b, int l,
-    int cin, int bb, int db) {
-  using R = RI8;
-  using SW = typename R::SW;
-  constexpr int NT = COUT / CT;  // channel tiles
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  const bool two = db && NT > 1;
-  const BlockedSmem<CT> sm(cin, two);
-  SW* s_w0 = reinterpret_cast<SW*>(smem + sm.w);
-  auto* s_in = reinterpret_cast<typename R::X*>(smem + sm.in);
-  float* s_sc = reinterpret_cast<float*>(smem + sm.sc);
-  float* s_scale = reinterpret_cast<float*>(smem + sm.scale);
-  const int cw = halo_words<R>(cin);
-  const int tiles_x = l / BTW, tiles = (l / BTH) * tiles_x;
-  const int img0 = (blockIdx.x / tiles) * bb;
-  const int t = blockIdx.x % tiles;
-  const int y0 = (t / tiles_x) * BTH, x0 = (t % tiles_x) * BTW;
-  const int py = threadIdx.x / BTW, px = threadIdx.x % BTW;
-  const int nimg = min(bb, b - img0);
-  if (two) {
-    stage_slice<R>(w, s_w0, cin, COUT, 0, 9, 0, CT);
-    cp_async_commit();
-  }
-  for (int jt = 0; jt < NT; ++jt) {
-    SW* s_w = s_w0 + (two ? (jt & 1) * sm.wsz : 0);
-    __syncthreads();  // every thread is done with the buffers refilled next
-    for (int c = threadIdx.x; c < CT; c += blockDim.x)
-      s_scale[c] = wscale[jt * CT + c];
-    if (two) {
-      if (jt + 1 < NT) {
-        stage_slice<R>(w, s_w0 + ((jt + 1) & 1) * sm.wsz, cin, COUT, 0, 9,
-                       (jt + 1) * CT, CT);
-        cp_async_commit();
-        cp_async_wait<1>();  // this tile's slice has landed
-      } else {
-        cp_async_wait<0>();
-      }
-    } else {
-      stage_slice<R>(w, s_w, cin, COUT, 0, 9, jt * CT, CT);
-    }
-    for (int i = 0; i < nimg; ++i) {
-      const long long img = img0 + i;
-      __syncthreads();  // weights visible / previous image's halo consumed
-      load_halo<R, BTH, BTW>(x, xs, s_in, s_sc, img, y0, x0, l, cin);
-      __syncthreads();
-      float acc[CT];
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (py + tap / 3) * BHWD + (px + tap % 3);
-        tap_fold<R, CT>(s_in + off, BNHALO, s_w + tap * cw * CT, cw,
-                        s_sc[off], s_scale, tap, acc);
-      }
-      float* o = out + ((img * l + y0 + py) * l + x0 + px) * COUT;
-      if constexpr (NT == 1) {
-        norm_relu<CT>([&](int co) { return acc[co]; }, bias, o);
-      } else {
-        float4* o4 = reinterpret_cast<float4*>(o + jt * CT);
-#pragma unroll
-        for (int q = 0; q < CT / 4; ++q)
-          o4[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                              acc[4 * q + 3]);
-      }
-    }
-  }
-  if constexpr (NT > 1) {
-    for (int i = 0; i < nimg; ++i) {
-      const long long img = img0 + i;
-      float* o = out + ((img * l + y0 + py) * l + x0 + px) * COUT;
-      norm_relu<COUT>([o](int co) { return o[co]; }, bias, o);
-    }
-  }
 }
 
 // ---- flat schedule, fp32 and bf16: the register-tiled engine --------------
@@ -977,7 +626,7 @@ __device__ __forceinline__ void rt_gap_corr_partials(
 // correlation bank the highpass(tiles) . corr partials, of the two TH x TW
 // tiles the block covers, each over its pixels in row-major order.
 // Partials are (b * (l / TH) * (l / TW), NB), tile-major within an image,
-// as conv_gap_corr_kernel writes them.
+// as the head kernel reads them.
 template <class R, int CIN>
 __global__ void __launch_bounds__(Rt<R, 64, CIN>::THREADS, 1)
 gap_corr_regtile_kernel(const float* __restrict__ x,
@@ -1247,27 +896,15 @@ __device__ __forceinline__ void conv_blocked_rt(
   }
 }
 
-template <class R, int CT>
-__host__ __device__ constexpr int blocked_threads() {
-  return std::is_same<R, RI8>::value ? BNPIX : BkTile<CT>::THREADS;
-}
-
-// One conv block on the blocked schedule (see the header), CIN 3 or COUT
-// input channels: at fp32 / bf16 the register-tiled engine, grid
-// bk_blocks(b, l, bb); at int8 the first design, grid ceil(b / bb) *
-// (l / 16)^2.
+// One conv block at fp32 / bf16 on the blocked schedule (see the
+// header), CIN 3 or COUT input channels: grid bk_blocks(b, l, bb).
 template <class R, int COUT, int CT, int CIN>
-__global__ void __launch_bounds__(blocked_threads<R, CT>(), 1)
-conv_blocked_kernel(const void* __restrict__ x, const float* __restrict__ xs,
+__global__ void __launch_bounds__(BkTile<CT>::THREADS, 1)
+conv_blocked_kernel(const float* __restrict__ x,
                     const typename R::W* __restrict__ w,
-                    const float* __restrict__ wscale,
                     const float* __restrict__ bias, float* __restrict__ out,
                     int b, int l, int bb, int db) {
-  if constexpr (std::is_same<R, RI8>::value)
-    conv_blocked_i8<COUT, CT>(x, xs, w, wscale, bias, out, b, l, CIN, bb, db);
-  else
-    conv_blocked_rt<R, COUT, CT, CIN>(static_cast<const float*>(x), w, bias,
-                                      out, b, l, bb, db);
+  conv_blocked_rt<R, COUT, CT, CIN>(x, w, bias, out, b, l, bb, db);
 }
 
 // Per image: GAP = (sum of the tile partials) / l^2, head as
@@ -1336,31 +973,28 @@ inline cudaError_t set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The host side of one rung: every launcher takes the rung's pointers as
-// void* (x: fp32 activations, or int8 words with their scales xs) and
-// returns cudaGetLastError() of its launch, or cudaErrorInvalidValue for a
-// shape it is not built for (fp32 / bf16 to_bits: cin in {3, 16, 32, 64}).
+// The host side of the fp32 or bf16 rung: each launcher returns
+// cudaGetLastError() of its launch, or cudaErrorInvalidValue for a shape
+// it is not built for (cin in {3, 16, 32, 64}; blocked: cin 3 or cout).
 // Members are defined out of the class, so they are not inline and
 // `extern template` keeps a rung's kernels in its own source (so does
-// FlatConv's `any`).
+// FlatConv's `any`).  The int8 rung's launchers are in
+// fused_extractor_int8.cu; its head is Extractor<RF32>::head.
 template <class R>
 struct Extractor {
   using W = typename R::W;
   template <int COUT, int CT>
-  static int blocked(const void* x, const float* xs, const void* w,
-                     const float* wscale, const float* bias, float* out,
-                     int b, int l, int cin, int bb, int db,
+  static int blocked(const float* x, const void* w, const float* bias,
+                     float* out, int b, int l, int cin, int bb, int db,
                      cudaStream_t stream);
   template <int COUT, int CT, int CIN>
-  static int blocked_cin(const void* x, const float* xs, const void* w,
-                         const float* wscale, const float* bias, float* out,
-                         int b, int l, int bb, int db, cudaStream_t stream);
-  static int blocked_any(const void* x, const float* xs, const void* w,
-                         const float* wscale, const float* bias, float* out,
-                         int b, int l, int cin, int cout, int bb, int ct,
-                         int db, cudaStream_t stream);
-  static int gap_corr(const void* x, const float* xs, const void* w,
-                      const float* wscale, const float* bias,
+  static int blocked_cin(const float* x, const void* w, const float* bias,
+                         float* out, int b, int l, int bb, int db,
+                         cudaStream_t stream);
+  static int blocked_any(const float* x, const void* w, const float* bias,
+                         float* out, int b, int l, int cin, int cout, int bb,
+                         int ct, int db, cudaStream_t stream);
+  static int gap_corr(const float* x, const void* w, const float* bias,
                       const float* tiles, const void* corr, float* part_gap,
                       float* part_corr, int b, int l, int cin, int n_bits,
                       int has_corr, cudaStream_t stream);
@@ -1380,8 +1014,6 @@ struct Extractor {
 // (fused_extractor_int8.cu).
 template <class R>
 struct FlatConv {
-  static_assert(!std::is_same<R, RI8>::value,
-                "the int8 flat conv is conv_imma_kernel");
   template <int COUT, int CIN>
   static int rt(const float* x, const void* w, const float* bias, float* out,
                 int b, int l, cudaStream_t stream) {
@@ -1424,54 +1056,40 @@ int FlatConv<R>::any(const float* x, const void* w, const float* bias,
 
 template <class R>
 template <int COUT, int CT>
-int Extractor<R>::blocked(const void* x, const float* xs, const void* w,
-                          const float* wscale, const float* bias, float* out,
-                          int b, int l, int cin, int bb, int db,
+int Extractor<R>::blocked(const float* x, const void* w, const float* bias,
+                          float* out, int b, int l, int cin, int bb, int db,
                           cudaStream_t stream) {
   if (l % 16) return (int)cudaErrorInvalidValue;
   if (cin == 3)
-    return blocked_cin<COUT, CT, 3>(x, xs, w, wscale, bias, out, b, l, bb, db,
-                                    stream);
+    return blocked_cin<COUT, CT, 3>(x, w, bias, out, b, l, bb, db, stream);
   if (cin == COUT)
-    return blocked_cin<COUT, CT, COUT>(x, xs, w, wscale, bias, out, b, l, bb,
-                                       db, stream);
+    return blocked_cin<COUT, CT, COUT>(x, w, bias, out, b, l, bb, db, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 template <class R>
 template <int COUT, int CT, int CIN>
-int Extractor<R>::blocked_cin(const void* x, const float* xs, const void* w,
-                              const float* wscale, const float* bias,
-                              float* out, int b, int l, int bb, int db,
-                              cudaStream_t stream) {
-  int blocks, threads;
-  size_t smem;
-  if constexpr (std::is_same<R, RI8>::value) {
-    blocks = (b + bb - 1) / bb * (l / BTH) * (l / BTW);
-    threads = BNPIX;
-    smem = BlockedSmem<CT>(CIN, db && COUT / CT > 1).end;
-  } else {
-    blocks = bk_blocks(b, l, bb);
-    threads = BkTile<CT>::THREADS;
-    smem = Bk<R, COUT, CT, CIN>::END;
-  }
+int Extractor<R>::blocked_cin(const float* x, const void* w,
+                              const float* bias, float* out, int b, int l,
+                              int bb, int db, cudaStream_t stream) {
+  constexpr int smem = Bk<R, COUT, CT, CIN>::END;
   cudaError_t err = set_smem(conv_blocked_kernel<R, COUT, CT, CIN>, smem);
   if (err != cudaSuccess) return (int)err;
-  conv_blocked_kernel<R, COUT, CT, CIN><<<blocks, threads, smem, stream>>>(
-      x, xs, static_cast<const W*>(w), wscale, bias, out, b, l, bb, db);
+  conv_blocked_kernel<R, COUT, CT, CIN>
+      <<<bk_blocks(b, l, bb), BkTile<CT>::THREADS, smem, stream>>>(
+          x, static_cast<const W*>(w), bias, out, b, l, bb, db);
   return (int)cudaGetLastError();
 }
 
 template <class R>
-int Extractor<R>::blocked_any(const void* x, const float* xs, const void* w,
-                              const float* wscale, const float* bias,
-                              float* out, int b, int l, int cin, int cout,
-                              int bb, int ct, int db, cudaStream_t stream) {
+int Extractor<R>::blocked_any(const float* x, const void* w,
+                              const float* bias, float* out, int b, int l,
+                              int cin, int cout, int bb, int ct, int db,
+                              cudaStream_t stream) {
   if (bb < 1) return (int)cudaErrorInvalidValue;
-#define QR_BLOCKED(CO, CTV)                                                 \
-  if (cout == CO && ct == CTV)                                              \
-    return blocked<CO, CTV>(x, xs, w, wscale, bias, out, b, l, cin, bb, db, \
-                            stream);
+#define QR_BLOCKED(CO, CTV)                                                  \
+  if (cout == CO && ct == CTV)                                               \
+    return blocked<CO, CTV>(x, w, bias, out, b, l, cin, bb, db, stream);
   QR_BLOCKED(16, 16) QR_BLOCKED(16, 8) QR_BLOCKED(16, 4)
   QR_BLOCKED(32, 32) QR_BLOCKED(32, 16) QR_BLOCKED(32, 8) QR_BLOCKED(32, 4)
   QR_BLOCKED(64, 64) QR_BLOCKED(64, 32) QR_BLOCKED(64, 16) QR_BLOCKED(64, 8)
@@ -1482,38 +1100,22 @@ int Extractor<R>::blocked_any(const void* x, const float* xs, const void* w,
 
 // n_bits == 60 (the RS(15,12) GF(16) codeword)
 template <class R>
-int Extractor<R>::gap_corr(const void* x, const float* xs, const void* w,
-                           const float* wscale, const float* bias,
+int Extractor<R>::gap_corr(const float* x, const void* w, const float* bias,
                            const float* tiles, const void* corr,
                            float* part_gap, float* part_corr, int b, int l,
                            int cin, int n_bits, int has_corr,
                            cudaStream_t stream) {
-  constexpr int NB = 60;
-  if (n_bits != NB) return (int)cudaErrorInvalidValue;
-  if constexpr (std::is_same<R, RI8>::value) {
-    const int blocks = b * (l / TH) * (l / TW);
-    const size_t smem = ((FlatSmem<R>(cin, NB).end + 15) & ~15) +
-                        sizeof(float) * NPIX * (NB + 1);
-    cudaError_t err = set_smem(conv_gap_corr_kernel<R, NB>, smem);
-    if (err != cudaSuccess) return (int)err;
-    conv_gap_corr_kernel<R, NB><<<blocks, NPIX, smem, stream>>>(
-        x, xs, static_cast<const W*>(w), wscale, bias, tiles,
-        static_cast<const typename R::H*>(corr), part_gap, part_corr, l, cin,
-        has_corr);
-    return (int)cudaGetLastError();
-  } else {
-    const float* xf = static_cast<const float*>(x);
-    switch (cin) {
-      case 3: return gap_corr_rt<3>(xf, w, bias, tiles, corr, part_gap,
+  if (n_bits != 60) return (int)cudaErrorInvalidValue;
+  switch (cin) {
+    case 3: return gap_corr_rt<3>(x, w, bias, tiles, corr, part_gap,
+                                  part_corr, b, l, has_corr, stream);
+    case 16: return gap_corr_rt<16>(x, w, bias, tiles, corr, part_gap,
                                     part_corr, b, l, has_corr, stream);
-      case 16: return gap_corr_rt<16>(xf, w, bias, tiles, corr, part_gap,
-                                      part_corr, b, l, has_corr, stream);
-      case 32: return gap_corr_rt<32>(xf, w, bias, tiles, corr, part_gap,
-                                      part_corr, b, l, has_corr, stream);
-      case 64: return gap_corr_rt<64>(xf, w, bias, tiles, corr, part_gap,
-                                      part_corr, b, l, has_corr, stream);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    case 32: return gap_corr_rt<32>(x, w, bias, tiles, corr, part_gap,
+                                    part_corr, b, l, has_corr, stream);
+    case 64: return gap_corr_rt<64>(x, w, bias, tiles, corr, part_gap,
+                                    part_corr, b, l, has_corr, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -1551,9 +1153,8 @@ int Extractor<R>::head(const float* part_gap, const float* part_corr,
   return (int)cudaGetLastError();
 }
 
-// the lower rungs are instantiated in their own sources
+// the bf16 rung is instantiated in its own source
 extern template struct Extractor<RBF16>;
-extern template struct Extractor<RI8>;
 extern template struct FlatConv<RBF16>;
 
 }  // namespace qr

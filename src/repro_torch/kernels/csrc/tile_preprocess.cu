@@ -1,12 +1,13 @@
 // Fused ingest: raw uint8 -> Resize -> CenterCrop -> Normalize, either for
-// the selected tiles only (tile-first, `tile_preprocess_kernel`) or for the
-// whole (crop, crop) image (staged, `preprocess_kernel`).
+// the selected tiles only (tile-first) or for the whole (crop, crop) image
+// (staged), both by `tile_preprocess_kernel`: the staged image is the one
+// tile of side crop at offset (0, 0).
 //
-// `tile_preprocess_kernel` replaces the Pallas kernel `fused_tile_preprocess`
+// Replaces the Pallas kernels `fused_tile_preprocess`
 // (src/repro/kernels/fused_tile_preprocess.py:68, pallas_call at :99, body
-// `_kernel` :46); `preprocess_kernel` replaces the Pallas kernel
-// `fused_preprocess` (src/repro/kernels/fused_preprocess.py:63, pallas_call
-// at :79, body `_kernel` :57).  Both share the math `interp_affine`
+// `_kernel` :46) and `fused_preprocess` (src/repro/kernels/
+// fused_preprocess.py:63, pallas_call at :79, body `_kernel` :57).  Both
+// share the math `interp_affine`
 // (fused_preprocess.py:32): per channel,
 // scale_c * (Ry @ img_c @ Rx) + bias_c, run on the TPU as dense
 // interpolation matmuls because gathers are slow on its vector unit.
@@ -14,25 +15,27 @@
 // What bounds them on the H100: bytes.  Each output element costs four
 // byte loads (mostly L1/L2 hits), twelve flops and one 4-byte store, so a
 // kernel is bound by writing its float32 output and reading the raw pixels
-// under it: at b = 32 and the default geometry the full-image kernel needs
-// the 6.3 MB of raw bytes under the crop and writes 25.2 MB.
+// under it: at b = 32 and the default geometry the staged ingest needs the
+// 6.3 MB of raw bytes under the crop and writes 25.2 MB, 9.4 us at 3.35
+// TB/s.
 //
 // Design: Ry and Rx have at most two nonzeros per row (bilinear, edge
 // clamp), so the dense products become a gather with two taps per axis.
 // The host passes the (index, weight) pairs read off the very float32
 // matrices the reference builds (`resize_matrix`); an edge-clamp row whose
 // two taps were summed into one entry arrives as (i, i) with weights
-// (w, 0).  Both kernels compute an output pixel through the one device
-// function `interp_pixel`, which keeps the reference's order — vertical
-// pass, horizontal pass, then *scale + bias — with __fmul_rn/__fadd_rn so
-// nvcc does not contract it into FMAs.  So the staged image's pixel
-// (row, col) is bit for bit the tile-first kernel's pixel at the same
-// (row, col): staged ingest followed by the tile gather equals tile-first
-// ingest exactly.
+// (w, 0).  Every output pixel goes through the one device function
+// `interp_pixel`, which keeps the reference's order — vertical pass,
+// horizontal pass, then *scale + bias — with __fmul_rn/__fadd_rn so nvcc
+// does not contract it into FMAs.  So the staged image's pixel (row, col)
+// is bit for bit the tile-first pixel at the same (row, col): staged
+// ingest followed by the tile gather equals tile-first ingest exactly.
 //
 // `tile_preprocess_kernel`: a block owns `rows` output rows of one tile
-// (256 / tile rows, 4 at tile 64), a thread one output pixel and its three
-// channels.  The block clamps its tile's offsets once (to [0, crop - l],
+// (tile-first: 256 / tile rows, 4 at tile 64, a thread a pixel; staged:
+// kStagedPixels / crop rows, 4 at crop 256, a thread four pixels), a
+// thread a pixel's three channels.  The block clamps its tile's offsets
+// once (to [0, crop - l],
 // as lax.dynamic_slice clamps them; the image is t / k, so the (b, k, 2)
 // escalation form costs nothing extra), stages the (index, weight) pairs
 // of its rows and of the tile's columns and the affine in shared memory,
@@ -40,9 +43,8 @@
 // the (n, l, l, 3) output: the pixels land in shared memory (a thread's
 // three channels 12 bytes apart, conflict-free) and leave as float4
 // stores, coalesced.  The tables are one buffer (row pairs, column pairs,
-// affine), so a launch passes four pointers.  `preprocess_kernel` (the
-// staged ingest's) is one thread an output element over a grid-stride
-// loop.
+// affine), so a launch passes four pointers.  The staged ingest passes no
+// offsets (its one tile sits at (0, 0)).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,9 +74,11 @@ __device__ __forceinline__ float interp_pixel(
 }
 
 constexpr int kIngestThreads = 256;
+constexpr int kStagedPixels = 1024;  // output pixels a staged block owns
 
 // tables: ry_idx (crop, 2) int32 | ry_w (crop, 2) | rx_idx (crop, 2) int32
-// | rx_w (crop, 2) | scale (3) | bias (3), 4-byte words
+// | rx_w (crop, 2) | scale (3) | bias (3), 4-byte words; offsets (n, 2),
+// or null for one tile at (0, 0)
 __global__ void __launch_bounds__(kIngestThreads)
     tile_preprocess_kernel(const uint8_t* __restrict__ raw,
                            const int* __restrict__ offsets,
@@ -93,8 +97,8 @@ __global__ void __launch_bounds__(kIngestThreads)
   const int r0 = (blockIdx.x - t * groups) * rows;
   const int nr = min(rows, tile - r0);
   const int max_off = crop - tile;
-  const int oy = min(max(offsets[2 * t], 0), max_off) + r0;
-  const int ox = min(max(offsets[2 * t + 1], 0), max_off);
+  const int oy = (offsets ? min(max(offsets[2 * t], 0), max_off) : 0) + r0;
+  const int ox = offsets ? min(max(offsets[2 * t + 1], 0), max_off) : 0;
   const float* ry_w = reinterpret_cast<const float*>(tables + 2 * crop);
   const int* rx_idx = tables + 4 * crop;
   const float* rx_w = reinterpret_cast<const float*>(tables + 6 * crop);
@@ -130,29 +134,9 @@ __global__ void __launch_bounds__(kIngestThreads)
   }
 }
 
-__global__ void preprocess_kernel(
-    const uint8_t* __restrict__ raw, const int* __restrict__ ry_idx,
-    const float* __restrict__ ry_w, const int* __restrict__ rx_idx,
-    const float* __restrict__ rx_w, const float* __restrict__ scale,
-    const float* __restrict__ bias, float* __restrict__ out,
-    long long total, int H, int W, int crop) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int c = (int)(idx % 3);
-    const long long pix = idx / 3;
-    const int col = (int)(pix % crop);
-    const int row = (int)((pix / crop) % crop);
-    const long long img = pix / ((long long)crop * crop);
-    out[idx] = interp_pixel(raw + img * (long long)H * W * 3, W, row, col,
-                            c, ry_idx, ry_w, rx_idx, rx_w, scale, bias);
-  }
-}
-
-unsigned grid_for(long long total, int threads) {
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  return (unsigned)blocks;
+// dynamic shared memory of a block of `rows` rows of a tile
+size_t ingest_smem(int rows, int tile) {
+  return sizeof(float) * (4 * (rows + tile) + 8 + 3 * rows * tile);
 }
 
 }  // namespace
@@ -165,23 +149,23 @@ extern "C" int qr_tile_preprocess(const void* raw, const void* offsets,
   if (n <= 0 || tile <= 0 || tile > crop) return (int)cudaErrorInvalidValue;
   const int rows = tile < kIngestThreads ? kIngestThreads / tile : 1;
   const int groups = (tile + rows - 1) / rows;
-  const size_t smem = sizeof(float) * (4 * (rows + tile) + 8 + 3 * rows * tile);
-  tile_preprocess_kernel<<<n * groups, kIngestThreads, smem,
-                           (cudaStream_t)stream>>>(
+  tile_preprocess_kernel<<<n * groups, kIngestThreads,
+                           ingest_smem(rows, tile), (cudaStream_t)stream>>>(
       (const uint8_t*)raw, (const int*)offsets, (const int*)tables,
       (float*)out, k, H, W, tile, crop, rows);
   return (int)cudaGetLastError();
 }
 
-extern "C" int qr_preprocess(
-    const void* raw, const void* ry_idx, const void* ry_w,
-    const void* rx_idx, const void* rx_w, const void* scale,
-    const void* bias, void* out, int b, int H, int W, int crop,
-    void* stream) {
-  const long long total = (long long)b * crop * crop * 3;
-  preprocess_kernel<<<grid_for(total, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)raw, (const int*)ry_idx, (const float*)ry_w,
-      (const int*)rx_idx, (const float*)rx_w, (const float*)scale,
-      (const float*)bias, (float*)out, total, H, W, crop);
+// The staged ingest: the whole (crop, crop) image of each of the b raw
+// images, as the one tile of side crop at (0, 0); tables as above.
+extern "C" int qr_preprocess(const void* raw, const void* tables, void* out,
+                             int b, int H, int W, int crop, void* stream) {
+  if (b <= 0 || crop <= 0) return (int)cudaErrorInvalidValue;
+  const int rows = crop < kStagedPixels ? kStagedPixels / crop : 1;
+  const int groups = (crop + rows - 1) / rows;
+  tile_preprocess_kernel<<<b * groups, kIngestThreads,
+                           ingest_smem(rows, crop), (cudaStream_t)stream>>>(
+      (const uint8_t*)raw, nullptr, (const int*)tables, (float*)out, 1, H, W,
+      crop, crop, rows);
   return (int)cudaGetLastError();
 }

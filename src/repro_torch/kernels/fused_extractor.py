@@ -32,14 +32,14 @@ The blocked schedule (batch block ``bb``, output-channel tile ``ct``,
   of ``bb`` images through the packed body with the hidden convs'
   output columns in ``ct`` slices, pad rows sliced off;
 * :func:`fused_extractor_blocked_cuda` — the blocked CUDA conv kernel
-  for the hidden blocks (``conv_blocked_kernel``), then the flat
-  to_bits and head kernels (at int8 a quantize pass before each conv,
-  and the one-thread-per-pixel ``__dp4a`` to_bits kernel).  At fp32 and
-  bf16 the blocked conv runs the flat kernels' register-tiled engine on
-  four 8x8 pixel slots at a time, filled by ``bb`` images, with each
-  channel tile's weight slice staged once a block where it fits.  Its
-  logits equal the flat kernel's bit for bit on every schedule, at
-  every rung.
+  for the hidden blocks (``conv_blocked_kernel`` at fp32 and bf16,
+  ``conv_blocked_imma_kernel`` at int8), then the flat to_bits and
+  head kernels.  It runs the flat kernels' engine (register-tiled at
+  fp32 and bf16, the int8 tensor cores at int8, with the quantize in
+  each conv's epilogue, so no quantize pass) on four 8x8 pixel slots at
+  a time, filled by ``bb`` images, with each channel tile's weight
+  slice staged once a block where it fits.  Its logits equal the flat
+  kernel's bit for bit on every schedule, at every rung.
 
 All four return ``(logits, embed)`` with ``embed`` the (b, n_bits) GAP
 vector when ``with_embed``, else ``logits`` alone.
@@ -58,24 +58,25 @@ from repro_torch.kernels import _build
 # instantiations of the CUDA kernels (csrc/extractor.cuh)
 HIDDEN_CHANNELS = (16, 32, 64)
 N_BITS = (60,)
-# the tile size l is a multiple of PIXEL_TILE on both schedules: the
-# pixel tiles are 16x16 (flat fp32 / bf16, blocked) and 8x16 (flat int8);
-# each GAP / correlation partial covers an 8x16 (rows, cols) tile.  The
+# the tile size l is a multiple of PIXEL_TILE on both schedules: the flat
+# kernels' pixel tiles are 16x16, the blocked kernels' regions 8x8 to
+# 16x16; each GAP / correlation partial covers an 8x16 (rows, cols) tile.  The
 # blocked kernel's channel tiles are multiples of 4 dividing the hidden
 # width (see blocked_channel_tiles)
 PIXEL_TILE = 16
 PARTIAL_TILE = (8, 16)
 # the C entry points' ``rung`` argument, by the pack's dtype
 RUNGS = {"fp32": 0, "bf16": 1, "int8": 2}
-# each rung's type parameter and head dtype in the kernels' names
-_RUNG_TYPES = ("qr::RF32", "qr::RBF16", "qr::RI8")
+# the fp32 and bf16 rungs' type parameter, and each rung's head dtype, in
+# the kernels' names
+_RUNG_TYPES = ("qr::RF32", "qr::RBF16")
 _HEAD_TYPES = ("float", "__nv_bfloat16", "float")
 INT8 = RUNGS["int8"]
 
 
 class QuantAct(NamedTuple):
-    """An int8 activation as the int8 flat kernels pass it between
-    layers: ``q`` (b, l, l, c / 4) int32, four channels' int8 values to a
+    """An int8 activation as the int8 kernels pass it between layers
+    (both schedules): ``q`` (b, l, l, c / 4) int32, four channels' int8 values to a
     little-endian word, and ``s`` (b, l, l) fp32, one scale a pixel
     (``quantize_rows_int8``'s q and s)."""
     q: torch.Tensor
@@ -219,25 +220,24 @@ def _launched(name: str):
 def conv_kernel_name(rung: int, cin: int, cout: int,
                      channel_tile=None) -> str:
     """The CUDA kernel that :func:`conv_block` launches for this layer at
-    this rung: ``qr_conv3x3_norm_relu`` (fp32 / bf16), ``qr_conv3x3_imma``
-    (int8), or with a ``channel_tile`` ``qr_conv3x3_norm_relu_blocked``."""
+    this rung: ``qr_conv3x3_norm_relu``'s (fp32 / bf16) or
+    ``qr_conv3x3_imma``'s (int8), or with a ``channel_tile``
+    ``qr_conv3x3_norm_relu_blocked``'s or ``qr_conv3x3_imma_blocked``'s."""
+    if rung == INT8:
+        return (f"conv_imma_kernel<{cin},{cout}>" if channel_tile is None
+                else f"conv_blocked_imma_kernel<{cin},{cout},{channel_tile}>")
     if channel_tile is not None:
         return f"conv_blocked_kernel<{_RUNG_TYPES[rung]},{cout}," \
             f"{channel_tile},{cin}>"
-    if rung == INT8:
-        return f"conv_imma_kernel<{cin},{cout}>"
     return f"conv_regtile_kernel<{_RUNG_TYPES[rung]},{cout},{cin}>"
 
 
-def to_bits_kernel_name(rung: int, cin: int, n_bits: int,
-                        blocked: bool = False) -> str:
-    """The CUDA kernel that :func:`to_bits_partials` launches: at int8
-    ``qr_conv3x3_gap_corr_imma``'s on the flat schedule, the
-    one-thread-per-pixel ``conv_gap_corr_kernel`` after the blocked
-    schedule."""
+def to_bits_kernel_name(rung: int, cin: int, n_bits: int) -> str:
+    """The CUDA kernel that :func:`to_bits_partials` launches on either
+    schedule (n_bits is always 60): ``qr_conv3x3_gap_corr``'s (fp32 /
+    bf16) or ``qr_conv3x3_gap_corr_imma``'s (int8)."""
     if rung == INT8:
-        return (f"conv_gap_corr_kernel<{_RUNG_TYPES[rung]},{n_bits}>"
-                if blocked else f"gap_corr_imma_kernel<{cin}>")
+        return f"gap_corr_imma_kernel<{cin}>"
     return f"gap_corr_regtile_kernel<{_RUNG_TYPES[rung]},{cin}>"
 
 
@@ -248,27 +248,9 @@ def head_kernel_name(rung: int, n_bits: int) -> str:
 
 def is_decode_kernel(name: str) -> bool:
     """Whether a profiled device kernel is one of the decode's (a conv,
-    to_bits, the head or the int8 quantize pass): what a decode's
-    device time sums."""
+    to_bits or the head): what a decode's device time sums."""
     return "qr::" in name and any(
-        p in name for p in ("conv_", "gap_corr", "head_kernel",
-                            "quantize_rows"))
-
-
-def _layer_input(lib, x, cin, rung, stream):
-    """A conv's input on the blocked schedule: the activation ``x``
-    itself, or at int8 its quantized words and per-pixel scales (one
-    launch of the pass)."""
-    if rung != INT8:
-        return x, None
-    npix = x.numel() // cin
-    q = torch.empty((npix, (cin + 3) // 4), dtype=torch.int32,
-                    device=x.device)
-    s = torch.empty((npix,), dtype=torch.float32, device=x.device)
-    _build.check("qr_quantize_rows_int8", lib.qr_quantize_rows_int8(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), npix, cin, stream))
-    _launched("quantize_rows_kernel")
-    return q, s
+        p in name for p in ("conv_", "gap_corr", "head_kernel"))
 
 
 def conv_block(lib, x, blk, rung, stream, blocked=None):
@@ -276,21 +258,19 @@ def conv_block(lib, x, blk, rung, stream, blocked=None):
     the pack entry ``blk`` on the contiguous fp32 activation ``x``
     (b, l, l, cin), cin 3 or a hidden width: the flat kernel
     (``qr_conv3x3_norm_relu``), or with ``blocked = (bb, ct,
-    double_buffer)`` the blocked one (at int8 after the quantize pass).
-    Returns the (b, l, l, cout) fp32 activation.  At int8 on the flat
-    schedule (``qr_conv3x3_imma``) ``x`` is the tiles (cin 3) or the
-    layer before's :class:`QuantAct`, and so is what it returns.  A
-    kernel launch of the op, not the op: it counts in
-    ``kernel_launches``, not in ``launch_counts``."""
-    if rung == INT8 and blocked is None:
-        return _conv_block_imma(lib, x, blk, stream)
+    double_buffer)`` the blocked one.  Returns the (b, l, l, cout) fp32
+    activation.  At int8 (``qr_conv3x3_imma``, blocked
+    ``qr_conv3x3_imma_blocked``) ``x`` is the tiles (cin 3) or the layer
+    before's :class:`QuantAct`, and so is what it returns.  A kernel
+    launch of the op, not the op: it counts in ``kernel_launches``, not
+    in ``launch_counts``."""
+    if rung == INT8:
+        return _conv_block_imma(lib, x, blk, stream, blocked)
     b, l, cin = x.shape[0], x.shape[1], x.shape[3]
     cout = blk["w"].shape[-1]
     y = torch.empty((b, l, l, cout), dtype=torch.float32, device=x.device)
-    xq, xs = _layer_input(lib, x, cin, rung, stream)
-    args = (xq.data_ptr(), _ptr(xs), blk["w"].data_ptr(),
-            _ptr(blk.get("scale")), blk["b"].data_ptr(), y.data_ptr(), b, l,
-            cin, cout)
+    args = (x.data_ptr(), blk["w"].data_ptr(), blk["b"].data_ptr(),
+            y.data_ptr(), b, l, cin, cout)
     if blocked is None:
         _build.check("qr_conv3x3_norm_relu", lib.qr_conv3x3_norm_relu(
             *args, rung, stream))
@@ -304,9 +284,11 @@ def conv_block(lib, x, blk, rung, stream, blocked=None):
     return y
 
 
-def _conv_block_imma(lib, x, blk, stream) -> QuantAct:
-    """The int8 flat schedule's hidden block: fp32 tiles or a
-    :class:`QuantAct` in, a :class:`QuantAct` out."""
+def _conv_block_imma(lib, x, blk, stream, blocked=None) -> QuantAct:
+    """The int8 hidden block on either schedule: fp32 tiles or a
+    :class:`QuantAct` in, a :class:`QuantAct` out.  The blocked kernel
+    at ct < C keeps each pass's pre-norm columns in an fp32 (b, l, l, C)
+    scratch, allocated here."""
     if isinstance(x, QuantAct):
         xq, xs, cin = x.q, x.s, 4 * x.q.shape[3]
     else:
@@ -318,11 +300,19 @@ def _conv_block_imma(lib, x, blk, stream) -> QuantAct:
         torch.empty((b, l, l, cout // 4), dtype=torch.int32,
                     device=xq.device),
         torch.empty((b, l, l), dtype=torch.float32, device=xq.device))
-    _build.check("qr_conv3x3_imma", lib.qr_conv3x3_imma(
-        xq.data_ptr(), _ptr(xs), frags.data_ptr(), ws.data_ptr(),
-        blk["b"].data_ptr(), out.q.data_ptr(), out.s.data_ptr(), b, l, cin,
-        cout, stream))
-    _launched(conv_kernel_name(INT8, cin, cout))
+    args = (xq.data_ptr(), _ptr(xs), frags.data_ptr(), ws.data_ptr(),
+            blk["b"].data_ptr(), out.q.data_ptr(), out.s.data_ptr())
+    if blocked is None:
+        _build.check("qr_conv3x3_imma", lib.qr_conv3x3_imma(
+            *args, b, l, cin, cout, stream))
+    else:
+        bb, ct, db = blocked
+        scratch = None if ct == cout else torch.empty(
+            (b, l, l, cout), dtype=torch.float32, device=xq.device)
+        _build.check("qr_conv3x3_imma_blocked", lib.qr_conv3x3_imma_blocked(
+            *args, _ptr(scratch), b, l, cin, cout, bb, ct, int(db), stream))
+    _launched(conv_kernel_name(INT8, cin, cout,
+                               None if blocked is None else blocked[1]))
     return out
 
 
@@ -358,13 +348,13 @@ def _empty(tiles, packed, with_embed):
 
 def to_bits_partials(lib, tiles, x, packed, rung, stream):
     """The to_bits + GAP + correlation kernel on the last hidden
-    activation ``x`` (at int8: the flat schedule's :class:`QuantAct`, or
-    the blocked schedule's fp32 activation after the quantize pass): the
+    activation ``x`` (at int8 a :class:`QuantAct`, on either schedule):
+    the
     (b * (l / 8) * (l / 16), n_bits) GAP partials and, when the
     correlation bank applies at this tile size, the correlation
     partials (else None), one row per 8x16 pixel tile, tile-major
     within an image."""
-    imma = isinstance(x, QuantAct)
+    imma = rung == INT8
     xq = x.q if imma else x
     b, l = xq.shape[0], xq.shape[1]
     cin = 4 * xq.shape[3] if imma else xq.shape[3]
@@ -384,12 +374,11 @@ def to_bits_partials(lib, tiles, x, packed, rung, stream):
             _ptr(part_corr), b, l, cin, n_bits, int(has_corr), stream))
         _launched(to_bits_kernel_name(rung, cin, n_bits))
         return part_gap, part_corr
-    xq, xs = _layer_input(lib, x, cin, rung, stream)
     _build.check("qr_conv3x3_gap_corr", lib.qr_conv3x3_gap_corr(
-        xq.data_ptr(), _ptr(xs), tb["w"].data_ptr(), _ptr(tb.get("scale")),
-        tb["b"].data_ptr(), tiles.data_ptr(), corr, part_gap.data_ptr(),
-        _ptr(part_corr), b, l, cin, n_bits, int(has_corr), rung, stream))
-    _launched(to_bits_kernel_name(rung, cin, n_bits, blocked=rung == INT8))
+        x.data_ptr(), tb["w"].data_ptr(), tb["b"].data_ptr(),
+        tiles.data_ptr(), corr, part_gap.data_ptr(), _ptr(part_corr), b, l,
+        cin, n_bits, int(has_corr), rung, stream))
+    _launched(to_bits_kernel_name(rung, cin, n_bits))
     return part_gap, part_corr
 
 
@@ -477,9 +466,8 @@ def fused_extractor_blocked_plain(tiles: torch.Tensor, packed: dict, *,
 
 def _launch_blocked(lib, tiles, packed, rung, bb, ct, double_buffer,
                     with_embed, stream):
-    """The blocked schedule's launches: the blocked conv per hidden
-    block (plus the quantize pass at int8), then the flat to_bits and
-    head kernels."""
+    """The blocked schedule's launches (D + 2 kernels): the blocked conv
+    per hidden block, then the flat to_bits and head kernels."""
     x = tiles
     for blk in packed["blocks"]:
         x = conv_block(lib, x, blk, rung, stream,

@@ -10,10 +10,12 @@ normalisation folded into a per-channel affine.
 * :func:`fused_preprocess_plain` — the JAX kernel's dense form
   (``interp_affine`` on the whole matrices) in PyTorch;
 * :func:`fused_preprocess_cuda` — the hand-written CUDA kernel
-  (``csrc/tile_preprocess.cu``, ``preprocess_kernel``): the same
-  two-tap gather as the tile-first kernel, through the same device
-  function, so staged ingest followed by ``tiling.extract_tiles``
-  equals tile-first ingest bit for bit on the card.
+  (``csrc/tile_preprocess.cu``): the tile-first kernel,
+  ``tile_preprocess_kernel``, on the one tile of side ``crop`` at
+  (0, 0) of each image, a block whole output rows of one image.  Each
+  pixel goes through the same device function as a tile-first pixel, so
+  staged ingest followed by ``tiling.extract_tiles`` equals tile-first
+  ingest bit for bit on the card.
 """
 from __future__ import annotations
 
@@ -97,6 +99,18 @@ def device_tables(H: int, W: int, resize: int, crop: int, mean, std,
                  (ry_idx, ry_w, rx_idx, rx_w, scale, bias))
 
 
+@functools.lru_cache(maxsize=64)
+def ingest_tables(H: int, W: int, resize: int, crop: int, mean, std,
+                  device: str) -> torch.Tensor:
+    """The ingest kernel's constant input, one int32 buffer on
+    ``device``, made once a geometry: the six tables of ``device_tables``
+    end to end, ry_idx (crop, 2) | ry_w (crop, 2) | rx_idx (crop, 2) |
+    rx_w (crop, 2) | scale (3) | bias (3), the float32 ones as their
+    bits."""
+    return torch.cat([t.reshape(-1).view(torch.int32) for t in
+                      device_tables(H, W, resize, crop, mean, std, device)])
+
+
 def check_raw(raw: torch.Tensor, crop: int, resize: int):
     if raw.dim() != 4 or raw.shape[-1] != 3:
         raise ValueError(f"raw must be (b, H, W, 3), got {tuple(raw.shape)}")
@@ -127,15 +141,13 @@ def fused_preprocess_cuda(raw: torch.Tensor, *, resize: int, crop: int,
         raise TypeError(f"need a contiguous uint8 raw batch, got "
                         f"{raw.dtype}")
     b, H, W, _ = raw.shape
-    tables = device_tables(H, W, resize, crop, hashable(mean),
-                           hashable(std), str(raw.device))
+    tables = ingest_tables(H, W, resize, crop, hashable(mean), hashable(std),
+                           str(raw.device))
     out = torch.empty((b, crop, crop, 3), dtype=torch.float32,
                       device=raw.device)
     if b:
-        err = _build.library().qr_preprocess(
-            raw.data_ptr(), *(t.data_ptr() for t in tables),
-            out.data_ptr(), b, H, W, crop,
-            torch.cuda.current_stream(raw.device).cuda_stream)
-        _build.check("qr_preprocess", err)
+        _build.check("qr_preprocess", _build.library().qr_preprocess(
+            raw.data_ptr(), tables.data_ptr(), out.data_ptr(), b, H, W, crop,
+            _build.current_stream(raw.device)))
         _build.launch_counts["fused_preprocess"] += 1
     return out

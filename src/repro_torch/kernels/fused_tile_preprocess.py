@@ -30,8 +30,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_preprocess import (affine, device_tables,
-                                                  hashable, interp_affine,
+from repro_torch.kernels.fused_preprocess import (affine, hashable,
+                                                  ingest_tables,
+                                                  interp_affine,
                                                   interp_matrices)
 
 
@@ -82,23 +83,13 @@ def fused_tile_preprocess_plain(raw: torch.Tensor, offsets: torch.Tensor,
 
 class IngestGeometry(NamedTuple):
     """What a tile-first ingest call of one geometry launches with:
-    the kernel's tables on the device (:func:`ingest_tables`) and their
+    the kernel's tables on the device (``ingest_tables``) and their
     address, the output's shape and the launch's integer arguments (n,
     k, H, W, tile, crop)."""
     tables: torch.Tensor
     tables_ptr: int
     out_shape: tuple
     ints: tuple
-
-
-def ingest_tables(H: int, W: int, resize: int, crop: int, mean, std,
-                  device: str) -> torch.Tensor:
-    """The tile-first kernel's constant input, one int32 buffer on
-    ``device``: the six tables of ``device_tables`` end to end, ry_idx
-    (crop, 2) | ry_w (crop, 2) | rx_idx (crop, 2) | rx_w (crop, 2) |
-    scale (3) | bias (3), the float32 ones as their bits."""
-    return torch.cat([t.reshape(-1).view(torch.int32) for t in
-                      device_tables(H, W, resize, crop, mean, std, device)])
 
 
 @functools.lru_cache(maxsize=64)

@@ -115,10 +115,9 @@ def test_model_index_math_is_the_kernels():
             # the grid, the block's images and region, a slot's pair
             "return bb >= 4 ? 1 : bb >= 2 ? 2 : 4;",
             "return (b + bb - 1) / bb * ((l / BS) * (l / BS) / bk_region(bb));",
-            "blocks = bk_blocks(b, l, bb); threads = BkTile<CT>::THREADS; "
-            "smem = Bk<R, COUT, CT, CIN>::END;",
-            "conv_blocked_rt<R, COUT, CT, CIN>(static_cast<const float*>(x), "
-            "w, bias, out, b, l, bb, db);",
+            "constexpr int smem = Bk<R, COUT, CT, CIN>::END;",
+            "<<<bk_blocks(b, l, bb), BkTile<CT>::THREADS, smem, stream>>>(",
+            "conv_blocked_rt<R, COUT, CT, CIN>(x, w, bias, out, b, l, bb, db);",
             "const int q = bk_region(bb), qw = q == 1 ? 1 : 2, "
             "qh = q == 4 ? 2 : 1;",
             "const int rcols = l / (BS * qw), regions = rcols * (l / (BS * qh));",

@@ -16,9 +16,9 @@ of the port the contracts are exact: staged ingest (full-image kernel,
 then the tile gather) equals tile-first ingest, and the blocked decode
 kernel equals the flat one, bit for bit, on every candidate schedule
 and channel tile, at every rung; so does each hidden block alone (the
-flat kernel's C entry point against the blocked one's; at int8 the flat
-tensor-core kernel's words and scales against the quantize pass on the
-blocked kernel's output), and a row's logits do not depend on the batch
+flat kernel's C entry point against the blocked one's; at int8 the words
+and scales each writes for the next layer, ``QuantAct``: no int8 path
+launches a quantize pass), and a row's logits do not depend on the batch
 it came in.  The RS kernel equals the plain version on words with
 entries outside {0, 1} and on int64 and bool bits.
 """
@@ -406,22 +406,18 @@ def test_rung_ops_count_their_launches(dev, dtype):
 def test_decode_kernels_count_their_launches(dev, dtype):
     """Each CUDA kernel of a decode call counts its own launches, under
     the name the per-layer launchers give it: depth 3 at C=16 is layer 0,
-    two hidden blocks, to_bits and the head, and at int8 no quantize
-    pass (the tensor-core kernels quantize in their epilogue); a blocked
-    call counts the blocked conv instead, and at int8 one quantize pass
-    before each conv and the one-thread-per-pixel to_bits kernel."""
+    two hidden blocks, to_bits and the head (at int8 no quantize pass:
+    the tensor-core kernels quantize in their epilogue); a blocked call
+    counts the blocked conv instead, beside the same to_bits and head."""
     pk = _rung_pack(dev, dtype, channels=16, depth=3, tile=16)
     tiles = torch.zeros((2, 16, 16, 3), device=dev)
     r = fx.RUNGS[dtype]
-    head = {fx.head_kernel_name(r, 60): 1}
+    tail = {fx.to_bits_kernel_name(r, 16, 60): 1,
+            fx.head_kernel_name(r, 60): 1}
     flat = {fx.conv_kernel_name(r, 3, 16): 1,
-            fx.conv_kernel_name(r, 16, 16): 2,
-            fx.to_bits_kernel_name(r, 16, 60): 1, **head}
+            fx.conv_kernel_name(r, 16, 16): 2, **tail}
     blocked = {fx.conv_kernel_name(r, 3, 16, 8): 1,
-               fx.conv_kernel_name(r, 16, 16, 8): 2,
-               fx.to_bits_kernel_name(r, 16, 60, blocked=True): 1, **head}
-    if dtype == "int8":
-        blocked["quantize_rows_kernel"] = 4
+               fx.conv_kernel_name(r, 16, 16, 8): 2, **tail}
     ops.reset_launch_counts()
     ops.fused_extractor(tiles, pk)
     assert ops.kernel_launch_counts() == flat
@@ -430,11 +426,33 @@ def test_decode_kernels_count_their_launches(dev, dtype):
     assert ops.kernel_launch_counts() == blocked
 
 
-def _quantized(lib, x, stream):
-    """The blocked int8 schedule's view of an fp32 activation: the
-    quantize pass's (words, scales) (``quantize_rows_kernel``)."""
-    q, s = fx._layer_input(lib, x, x.shape[3], fx.INT8, stream)
-    return q.view(x.shape[:3] + (-1,)), s.view(x.shape[:3])
+@pytest.mark.parametrize("schedule", ["bb4-ct0", "bb4-ct32-db"])
+def test_blocked_int8_call_launches_nine_kernels(dev, schedule):
+    """A blocked int8 decode call at depth 7 (C 64, l 64) launches 9
+    kernels: the seven blocked convs, the flat to_bits and the head, no
+    quantize pass; each launch counted under its kernel's name."""
+    pk = _rung_pack(dev, "int8", channels=64, depth=7, tile=64)
+    tiles = torch.zeros((2, 64, 64, 3), device=dev)
+    ops.reset_launch_counts()
+    ops.fused_extractor(tiles, pk, schedule=at.Schedule.from_string(schedule))
+    torch.cuda.synchronize()
+    counts = ops.kernel_launch_counts()
+    ct = at.Schedule.from_string(schedule).channel_tile or 64
+    r = fx.INT8
+    assert counts == {fx.conv_kernel_name(r, 3, 64, ct): 1,
+                      fx.conv_kernel_name(r, 64, 64, ct): 6,
+                      fx.to_bits_kernel_name(r, 64, 60): 1,
+                      fx.head_kernel_name(r, 60): 1}
+    assert sum(counts.values()) == 9
+    assert not any("quantize" in k for k in counts)
+
+
+def _same(got, want) -> bool:
+    """Bitwise equal activations: fp32 tensors, or at int8 the words and
+    scales of two ``QuantAct``s."""
+    if isinstance(want, fx.QuantAct):
+        return torch.equal(got.q, want.q) and torch.equal(got.s, want.s)
+    return torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
@@ -445,12 +463,12 @@ def test_hidden_block_flat_equals_blocked_bitwise(dev, dtype, channels, l,
                                                   b):
     """Each hidden block alone: layer 0 (cin 3) and a C -> C block, the
     flat kernel (``qr_conv3x3_norm_relu``; int8: ``qr_conv3x3_imma``)
-    bitwise equal to the blocked one (``qr_conv3x3_norm_relu_blocked``)
-    at ct = C and at ct = C / 2 with double buffering, on a batch block
-    that leaves b = 5 ragged.  At int8 in the form the next layer reads:
-    the flat kernel's words and scales against the quantize pass applied
-    to the blocked kernel's fp32 output; and the whole decode, flat
-    against blocked, logits and embedding."""
+    bitwise equal to the blocked one (``qr_conv3x3_norm_relu_blocked``;
+    int8: ``qr_conv3x3_imma_blocked``) at ct = C and at ct = C / 2 with
+    double buffering, on a batch block that leaves b = 5 ragged.  At int8
+    in the form the next layer reads (``QuantAct``: the words and
+    scales); and the whole decode, flat against blocked, logits and
+    embedding."""
     pk = _rung_pack(dev, dtype, channels=channels, depth=2, tile=l)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -464,14 +482,8 @@ def test_hidden_block_flat_equals_blocked_bitwise(dev, dtype, channels, l,
             got = fx.conv_block(lib, x, blk, rung, stream,
                                 blocked=(2, ct, db))
             torch.cuda.synchronize()
-            assert torch.isfinite(got).all()
-            if dtype == "int8":
-                q, s = _quantized(lib, got, stream)
-                torch.cuda.synchronize()
-                assert torch.equal(flat.q, q), (layer, ct)
-                assert torch.equal(flat.s, s), (layer, ct)
-            else:
-                assert torch.equal(got, flat), (layer, ct)
+            assert torch.isfinite(got.s if dtype == "int8" else got).all()
+            assert _same(got, flat), (layer, ct)
         xf, x = flat, got
     if dtype == "int8":
         tiles = torch.as_tensor(np.random.default_rng(l).uniform(
@@ -491,8 +503,8 @@ def test_blocked_small_batch_full_width_equals_flat(dev, dtype, b):
     and 3: schedules whose batch block exceeds the batch (clamped by the
     op, so the block's slots are part idle), at ct = C, C / 2 and 4, equal
     the flat kernel bit for bit, logits and embedding; and each hidden
-    block launched with the unclamped bb 8 > b (layer 0 and 64 -> 64,
-    fp32 / bf16) equals the flat block."""
+    block launched with the unclamped bb 8 > b (layer 0 and 64 -> 64)
+    equals the flat block."""
     pk = _rung_pack(dev, dtype, channels=64, depth=3, tile=64)
     tiles = torch.as_tensor(np.random.default_rng(b + 40).uniform(
         -2.0, 2.5, (b, 64, 64, 3)).astype(np.float32)).to(dev)
@@ -506,8 +518,6 @@ def test_blocked_small_batch_full_width_equals_flat(dev, dtype, b):
         torch.cuda.synchronize()
         assert torch.equal(got[0], flat[0]), sc
         assert torch.equal(got[1], flat[1]), sc
-    if dtype == "int8":
-        return
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rung = fx.RUNGS[dtype]
@@ -518,7 +528,7 @@ def test_blocked_small_batch_full_width_equals_flat(dev, dtype, b):
             got = fx.conv_block(lib, x, blk, rung, stream,
                                 blocked=(8, ct, db))
             torch.cuda.synchronize()
-            assert torch.equal(got, want), (x.shape[-1], ct)
+            assert _same(got, want), (blk["w"].shape[0], ct)
         x = want
 
 

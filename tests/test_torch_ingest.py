@@ -13,8 +13,16 @@ gather arithmetic must agree with the plain version within the same
 tolerance; a block-by-block model of the kernel (its launch shape,
 clamped offsets and rows, and its one tables buffer read at the
 kernel's offsets) must write every pixel once and equal that emulation
-bit for bit.
+bit for bit.  The staged (full-image) ingest runs the same kernel on the
+one tile of side crop at (0, 0), kStagedPixels / crop rows a block: its
+model writes every pixel once, equals the emulation bit for bit, the
+plain ``fused_preprocess_plain`` exactly where the resize is the
+identity (every weight 0 or 1) and within the tolerance elsewhere (the
+plain version's matmul rounds the two taps' sum in its own order), and
+its tile gather equals the tile-first model bit for bit.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +32,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import fused_preprocess as fp
 from repro_torch.kernels import fused_tile_preprocess as ftp
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 
 torch.set_num_threads(1)
 
@@ -143,30 +151,37 @@ def test_offsets_clamp_like_dynamic_slice():
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
-def _tile_kernel_model(raw, offs, resize, crop, tile):
+CU = " ".join((_build.CSRC / "tile_preprocess.cu").read_text().split())
+STAGED_PIXELS = int(re.search(r"constexpr int kStagedPixels = (\d+);",
+                              CU).group(1))
+
+
+def _kernel_model(raw, offs, n, k, resize, crop, tile, rows):
     """float32 numpy model of ``tile_preprocess_kernel`` block by block:
-    its launch shape (256 // tile rows of one tile a block), the block's
-    clamped offsets and rows, and its (index, weight) pairs read from the
-    one tables buffer of ``ingest_tables`` at the kernel's offsets (row
-    pairs at 0, their weights at 2 crop, column pairs at 4 crop, theirs at
-    6 crop, the affine at 8 crop); each pixel through ``interp_pixel``'s
-    arithmetic."""
+    n tiles of side ``tile``, ``rows`` rows of one tile a block, the
+    block's clamped offsets (none: the one tile at (0, 0)) and rows, and
+    its (index, weight) pairs read from the one tables buffer of
+    ``ingest_tables`` at the kernel's offsets (row pairs at 0, their
+    weights at 2 crop, column pairs at 4 crop, theirs at 6 crop, the
+    affine at 8 crop); each pixel through ``interp_pixel``'s arithmetic.
+    Returns the output and each pixel's writes."""
     b, H, W, _ = raw.shape
-    k = offs.shape[1] if offs.ndim == 3 else 1
     tables = ftp.ingest_tables(H, W, resize, crop, None, None, "cpu").numpy()
     f32 = np.float32
     ry_idx, rx_idx = tables[:2 * crop], tables[4 * crop:6 * crop]
     ry_w, rx_w, aff = (tables[a:z].view(f32) for a, z in (
         (2 * crop, 4 * crop), (6 * crop, 8 * crop), (8 * crop, 8 * crop + 6)))
-    rows = 256 // tile if tile < 256 else 1
     groups = -(-tile // rows)
-    flat = offs.reshape(-1, 2)
-    out = np.full((flat.shape[0], tile, tile, 3), np.nan, f32)
-    for block in range(flat.shape[0] * groups):
+    out = np.full((n, tile, tile, 3), np.nan, f32)
+    writes = np.zeros((n, tile, tile), np.int64)
+    for block in range(n * groups):
         t, r0 = block // groups, (block % groups) * rows
         nr = min(rows, tile - r0)
-        oy = min(max(int(flat[t, 0]), 0), crop - tile) + r0
-        ox = min(max(int(flat[t, 1]), 0), crop - tile)
+        if offs is None:
+            oy, ox = r0, 0
+        else:
+            oy = min(max(int(offs[t, 0]), 0), crop - tile) + r0
+            ox = min(max(int(offs[t, 1]), 0), crop - tile)
         img = raw[t // k].astype(f32)
         i, j = np.divmod(np.arange(nr * tile), tile)  # the block's pixels
         r = 2 * (oy + i)
@@ -179,7 +194,26 @@ def _tile_kernel_model(raw, offs, resize, crop, tile):
             v1 = f32(wr0 * px(r, c + 1)) + f32(wr1 * px(r + 1, c + 1))
             h = f32(v0 * wc0) + f32(v1 * wc1)
             out[t, r0 + i, j, ch] = f32(h * aff[ch]) + aff[3 + ch]
+        writes[t, r0 + i, j] += 1
+    return out, writes
+
+
+def _tile_kernel_model(raw, offs, resize, crop, tile):
+    """The tile-first launch: 256 // tile rows of one tile a block."""
+    k = offs.shape[1] if offs.ndim == 3 else 1
+    flat = offs.reshape(-1, 2)
+    out, writes = _kernel_model(raw, flat, flat.shape[0], k, resize, crop,
+                                tile, 256 // tile if tile < 256 else 1)
+    assert (writes == 1).all()
     return out
+
+
+def _staged_kernel_model(raw, resize, crop):
+    """The staged launch (``qr_preprocess``): each image's one tile of
+    side crop at (0, 0), kStagedPixels // crop rows a block."""
+    rows = STAGED_PIXELS // crop if crop < STAGED_PIXELS else 1
+    return _kernel_model(raw, None, raw.shape[0], 1, resize, crop, crop,
+                         rows)
 
 
 @pytest.mark.parametrize("geom", GEOMS + [(40, 40, 40, 20)])
@@ -202,3 +236,45 @@ def test_tile_kernel_blocks_match_gather_emulation(geom):
     tables = ftp.ingest_tables(raw_hw, raw_hw, resize, crop, None, None,
                                "cpu")
     assert tables.dtype == torch.int32 and tables.shape == (8 * crop + 6,)
+
+
+@pytest.mark.parametrize("geom", [(288, 288, 256, 64), (400, 288, 256, 64),
+                                  (64, 40, 32, 16)])
+def test_staged_kernel_blocks_match_plain(geom):
+    """The staged ingest's launch of the tile kernel: every pixel of each
+    (crop, crop) image written once; equal to the gather emulation at
+    offset (0, 0) bit for bit, to ``fused_preprocess_plain`` exactly at
+    the identity resize (288 -> 288 -> 256) and within ATOL at the
+    others; its tiles (``tiling.extract_tiles``) equal the tile-first
+    model's at the same offsets bit for bit."""
+    from repro_torch.core import tiling
+    raw_hw, resize, crop, tile = geom
+    raw, offs = _case(raw_hw, crop, tile, b=2, seed=4)
+    got, writes = _staged_kernel_model(raw, resize, crop)
+    assert (writes == 1).all()
+    zero = np.zeros((2, 2), np.int32)
+    np.testing.assert_array_equal(
+        got, _gather_emulation(raw, zero, resize, crop, crop))
+    want = fp.fused_preprocess_plain(torch.as_tensor(raw), resize=resize,
+                                     crop=crop).numpy()
+    if resize == raw_hw:
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    staged = tiling.extract_tiles(torch.as_tensor(got),
+                                  torch.as_tensor(offs), tile).numpy()
+    np.testing.assert_array_equal(
+        staged, _tile_kernel_model(raw, offs, resize, crop, tile))
+    for expr in (
+            "constexpr int kStagedPixels = 1024;",
+            "const int rows = crop < kStagedPixels ? kStagedPixels / crop : "
+            "1;",
+            "tile_preprocess_kernel<<<b * groups, kIngestThreads, "
+            "ingest_smem(rows, crop), (cudaStream_t)stream>>>( "
+            "(const uint8_t*)raw, nullptr, (const int*)tables, (float*)out, "
+            "1, H, W, crop, crop, rows);",
+            "const int oy = (offsets ? min(max(offsets[2 * t], 0), max_off) "
+            ": 0) + r0;",
+            "const int ox = offsets ? min(max(offsets[2 * t + 1], 0), "
+            "max_off) : 0;",
+            "const uint8_t* im = raw + (long long)(t / k) * H * W * 3;"):
+        assert expr in CU, expr

@@ -6,8 +6,8 @@ the CPU, where no CUDA kernel runs.
   on the device beside the pack) round-trip to ``pack_params``' int8
   weights, which equal the reference's.
 * The epilogue's quantize (``norm_relu``, then the pixel's amax, scale
-  and int8 words with ``quantize_rows_kernel``'s arithmetic), written
-  out in numpy float32 op for op, equals the port's
+  and int8 words, ``norm_relu_quantize``'s arithmetic), written out in
+  numpy float32 op for op, equals the port's
   ``quantize_rows_int8`` / ``quantize_words`` and the jitted reference's
   ``quantize_rows_int8`` on the same activation, exactly.
 * A numpy model of one block of the kernel, lane for lane: the halo as
@@ -19,9 +19,10 @@ the CPU, where no CUDA kernel runs.
   pre-norm output equals the plain int8 tap chain (``conv3x3_mm`` on
   the int8 pack) exactly, at layer 0, hidden blocks of 16, 32 and 64
   channels (one and two k-steps) and to_bits' 60 columns padded to 64,
-  on tiles away from the image's corner.  The card tests
-  (``tests/test_torch_cuda.py``, ``-m gpu``) hold the kernels
-  themselves to the blocked kernel bit for bit.
+  on tiles away from the image's corner.  The blocked kernel's work
+  split runs the same lane model (``tests/test_torch_blocked_int8.py``);
+  the card tests (``tests/test_torch_cuda.py``, ``-m gpu``) hold the
+  kernels themselves to each other bit for bit.
 """
 import re
 
@@ -62,8 +63,7 @@ def test_source_constants():
     assert IT == 16
     assert np.array(MAGIC, np.int32).view(F32) == F32(1.5 * 2 ** 23)
     assert "kMagicF = 12582912.f" in SRC
-    assert "kInvQmax = 0x1.020408p-7f" in (_build.CSRC /
-                                            "extractor.cuh").read_text()
+    assert "kInvQmax = 0x1.020408p-7f" in SRC
     assert float.fromhex("0x1.020408p-7") == float(INV_QMAX)
 
 
@@ -74,17 +74,21 @@ def test_model_index_math_is_the_kernels():
     lands in the tile."""
     flat = " ".join(SRC.split())
     for expr in (
-            "(((lane & 7) + 8 * ((lane >> 3) & 1)) * G::P * 4 + "
-            "16 * (lane >> 4))",
-            "const int hrow = 2 * warp + m + dy;",
-            "a_base + (hrow * IHW + dx) * G::P * 4 + 32 * kk",
-            "sx[m][0] = s_sc[hrow * IHW + dx + g];",
-            "sx[m][1] = s_sc[hrow * IHW + dx + g + 8];",
-            "imma_tap<CIN, NT, true>(0, a_base, s_sc, s_w + lane, s_ws, acc);",
-            "imma_tap<CIN, NT, false>(tap, a_base, s_sc, s_w + lane, s_ws, "
-            "acc);",
-            "const int2* wt = w_lane + tap * G::KS * NT * 32;",
-            "b[kk] = wt[(kk * NT + j) * 32];",
+            "(unsigned)((pix * Geo<CIN>::P + 4 * ((threadIdx.x & 31) >> 4)) "
+            "* 4);",
+            "const int first = 2 * warp * IHW;",
+            "lane_row<CIN>(s_in, first + (lane & 7) + 8 * ((lane >> 3) & 1));",
+            "const int s_row = first + (lane >> 2);",
+            "const int off = toff + m * MSTEP;",
+            "ldmatrix_x4(a[m][kk], a_row + off * G::P * 4 + 32 * kk);",
+            "sx[m][0] = s_sc[s_row + off];",
+            "sx[m][1] = s_sc[s_row + off + R8];",
+            "imma_tap<CIN, NT, 8, IHW, true>(0, a_row, s_row, s_sc, w_lane, "
+            "s_ws, acc);",
+            "imma_tap<CIN, NT, 8, IHW, false>(tap / 3 * IHW + tap % 3, a_row, "
+            "s_row, s_sc, w_lane + tap * S::WTAP, s_ws, acc);",
+            "const int2* w_lane = s_w + lane;",
+            "b[kk] = w_lane[(kk * NT + j) * 32];",
             "s_ws + 8 * j + 2 * t",
             "(2 * (threadIdx.x >> 5) + m) * IT + ((threadIdx.x & 31) >> 2) "
             "+ 8 * (i >> 1);",
@@ -101,8 +105,9 @@ def test_model_index_math_is_the_kernels():
 # -- the epilogue's quantize, op for op ---------------------------------------
 def quantize_model(v: np.ndarray):
     """(npix, c) float32 -> ((npix, ceil(c / 4)) int32 words, (npix,)
-    scales), as ``quantize_rows_kernel`` and the fused epilogue compute
-    them: amax by fmaxf over the channels in order, s = fmaxf(amax, 1e-8)
+    scales), as layer 0's halo and every epilogue compute them
+    (``quant_byte``; ``quant_byte_rcp`` gives the same bytes): amax over
+    the channels (exact in any order), s = fmaxf(amax, 1e-8)
     * float(1/127), q = fminf(fmaxf(rintf(v / s), -127), 127), byte j of
     word k channel 4k + j."""
     v = v.astype(F32)
@@ -283,14 +288,15 @@ def mma_model(a_regs: np.ndarray, b_regs: np.ndarray) -> np.ndarray:
     are."""
     lead = a_regs.shape[:-2]
     a_bytes = np.ascontiguousarray(a_regs).view(np.int8).reshape(
-        lead + (32, 16)).astype(np.int64)
+        lead + (32, 16))
     b_bytes = np.ascontiguousarray(b_regs).view(np.int8).reshape(
-        lead + (32, 8)).astype(np.int64)
-    A = np.zeros(lead + (16, 32), np.int64)
-    B = np.zeros(lead + (32, 8), np.int64)
+        lead + (32, 8))
+    # int8 products summed over 32 stay below 2^19: exact in float64
+    A = np.zeros(lead + (16, 32), np.float64)
+    B = np.zeros(lead + (32, 8), np.float64)
     A[..., A_ROW, A_COL] = a_bytes
     B[..., B_K, B_N] = b_bytes
-    D = A @ B + MAGIC
+    D = (A @ B).astype(np.int64) + MAGIC
     return D[..., C_ROW, C_COL].astype(np.int32)
 
 

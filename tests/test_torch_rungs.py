@@ -185,7 +185,8 @@ def test_kernel_names_name_instantiated_kernels(dtype):
     their launches (``kernel_launches``) are those of ``__global__``
     templates in the CUDA sources, with as many template arguments and
     a rung type the sources define; the flat and blocked schedules
-    count distinct kernels, and a reset clears the counts."""
+    count distinct kernels (to_bits is the flat one on both), no name is
+    a quantize pass's, and a reset clears the counts."""
     import re
     from repro_torch.kernels import _build, ops
     src = "".join(f.read_text() for f in sorted(_build.CSRC.glob("*.cu*")))
@@ -196,8 +197,9 @@ def test_kernel_names_name_instantiated_kernels(dtype):
         names |= {fx.conv_kernel_name(rung, c, c, ct)
                   for ct in fx.blocked_channel_tiles(c)}
         names.add(fx.to_bits_kernel_name(rung, c, 60))
-        names.add(fx.to_bits_kernel_name(rung, c, 60, blocked=True))
-    for name in names | {"quantize_rows_kernel"}:
+    assert not any("quantize" in n for n in names)
+    assert "quantize_rows_kernel" not in src
+    for name in names:
         fn, _, args = name.partition("<")
         decl = re.search(r"template\s*<([^>]*)>\s*__global__ void\s*"
                          r"(?:__launch_bounds__\(.*\)\s*)?" + fn + r"\(",
@@ -225,8 +227,8 @@ ptxas info    : Compiling entry function '_ZN2qr16conv_imma_kernelILi64ELi64EEEv
 ptxas info    : Function properties for _ZN2qr16conv_imma_kernelILi64ELi64EEEvPKvPKfPK4int2S4_S4_PiPfi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 118 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN2qr19conv_blocked_kernelINS_3RI8ELi16ELi4ELi16EEEvPKvPKfPKNT_1WES5_S5_Pfiiii' for 'sm_90a'
-ptxas info    : Function properties for _ZN2qr19conv_blocked_kernelINS_3RI8ELi16ELi4ELi16EEEvPKvPKfPKNT_1WES5_S5_Pfiiii
+ptxas info    : Compiling entry function '_ZN2qr24conv_blocked_imma_kernelILi16ELi16ELi4EEEvPKvPKfPK4int2S4_S4_PiPfS9_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN2qr24conv_blocked_imma_kernelILi16ELi16ELi4EEEvPKvPKfPK4int2S4_S4_PiPfS9_iiii
     16 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 48 registers, used 1 barriers, 16 bytes cumulative stack size
 ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__730f3e01_12_rs_decode_cu_979a838825rs_syndrome_decode_kernelEPKiPiS2_PbS2_i' for 'sm_90a'
@@ -245,7 +247,7 @@ def test_ptxas_log_is_read_per_kernel():
     regs = _build.kernel_registers(PTXAS_LOG)
     assert sorted(regs) == [
         "(anonymous namespace)::rs_syndrome_decode_kernel",
-        "qr::conv_blocked_kernel<qr::RI8, 16, 4, 16>",
+        "qr::conv_blocked_imma_kernel<16, 16, 4>",
         "qr::conv_imma_kernel<64, 64>"]
     i8 = fx.RUNGS["int8"]
     assert _build.registers_of(regs, fx.conv_kernel_name(i8, 64, 64)) == \

@@ -56,8 +56,7 @@ SOURCES = ("fused_extractor.cu", "fused_extractor_bf16.cu",
 TILE_LINE = "constexpr int TM = 8, TN = 8, RSTAGES = 3;"
 UNROLL_LINE = "#pragma unroll 4\n  for (int c4 = 0;"
 ENTRIES = ("qr_conv3x3_norm_relu", "qr_conv3x3_norm_relu_blocked",
-           "qr_conv3x3_gap_corr", "qr_extractor_head",
-           "qr_quantize_rows_int8")
+           "qr_conv3x3_gap_corr", "qr_extractor_head")
 
 
 def clocks_during(fn, seconds: float = 1.0) -> str:

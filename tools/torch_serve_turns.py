@@ -26,8 +26,9 @@ fp32, the default path's), of the blocked decode op at each of
 ``--schedules`` (``bb<N>-ct<N>[-db]`` strings; none by default), and of
 the head kernel alone on the flat decode's partials (over 10
 back-to-back launches), the head's device ms a launch in the profiled
-pass, and the ingest op's host microseconds a call over 200
-back-to-back calls.  Each turn also hashes the served results
+pass, the ingest op's host microseconds a call over 200
+back-to-back calls, and the staged (full-image) ingest op's call ms and
+device ms a launch (10 calls under the profiler) on the same raw batch.  Each turn also hashes the served results
 (logits, messages, ok, n_corrected of every batch); the run fails unless
 every turn's hash is the same, so the two checkouts serve the same bits.
 
@@ -151,6 +152,23 @@ def turn(tree: Path, dtype: str, schedules=()) -> dict:
     parts = fx.to_bits_partials(lib, tiles, x, pk, rung, stream)
     head_ms = call_ms(lambda: fx.head_logits(lib, *parts, pk, rung, cfg.tile,
                                              False, stream), reps=10)
+    # the staged ingest op alone: call ms, and device ms a launch
+    skw = dict(resize=cfg.resize_src, crop=cfg.img_size)
+    staged_ms = call_ms(lambda: ops.fused_preprocess(raw, **skw))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as sprof:
+        for _ in range(8):  # a later session can miss its first events
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(10):
+            ops.fused_preprocess(raw, **skw)
+        torch.cuda.synchronize()
+    srows = [e for e in sprof.key_averages()
+             if e.device_type == DeviceType.CUDA and
+             "preprocess_kernel" in e.key]
+    staged_dev = (sum(e.self_device_time_total for e in srows) / 1e3 /
+                  sum(e.count for e in srows)) if srows else None
     pipe.close()
     return {"tree": str(tree), "decode_dtype": dtype,
             "results_sha256": digest.hexdigest(), "images_per_s": ips,
@@ -170,7 +188,8 @@ def turn(tree: Path, dtype: str, schedules=()) -> dict:
                 lambda k: "head_kernel" in k),
             "ingest_call_ms": ingest_ms, "ingest_host_us": ingest_us,
             "decode_call_ms": decode_ms, "blocked_call_ms": blocked_ms,
-            "head_call_ms": head_ms}
+            "head_call_ms": head_ms, "staged_ingest_call_ms": staged_ms,
+            "staged_ingest_device_ms": staged_dev}
 
 
 def main() -> int:
@@ -233,7 +252,8 @@ def main() -> int:
                     "blocked_call_ms", "head_call_ms",
                     "head_device_ms_per_batch", "ingest_call_ms",
                     "ingest_host_us", "decode_device_ms_per_batch",
-                    "ingest_device_ms_per_batch")}}))
+                    "ingest_device_ms_per_batch", "staged_ingest_call_ms",
+                    "staged_ingest_device_ms")}}))
     return 0
 
 
