@@ -71,10 +71,25 @@ In order, it
    in its own (with its registers and, as a yardstick the port never
    calls, ``F.interpolate`` bilinear plus the affine on the same
    images);
-6. checks the default and the staged path, and the bf16 and int8 rungs,
+6. drives adaptive escalation at full width: a corr-only detector (head
+   weights zeroed) on 32 images watermarked with the bank's patterns in
+   every tile cell, Gaussian noise on the tile round 1 picks in 11 of
+   them — k = 1 fails exactly there, k = 3 recovers them on 1 + rounds
+   launches of each kernel and leaves the other rows bit for bit; a
+   flat-filled round-1 tile escalates under ``escalate_margin``;
+   ``decode_all_keyed`` equals the rounds bit for bit; the escalated
+   results equal a replay through the plain versions — then images/s at
+   k = 1 and 3 on the clean and the damaged batch, the synchronizing
+   calls a batch, a profiled escalated pass, ``serve --escalate-tiles 3``
+   at fp32 and int8 on the launcher's stream (counted, replayed),
+   ``torch_rs`` on the card against the CPU at (4, 15, 11) and
+   (8, 32, 24) and against the RS kernel at (4, 15, 12), with call ms at
+   B = 32 and 65,536, and each ``ATTACKS`` entry on the card against the
+   CPU;
+7. checks the default and the staged path, and the bf16 and int8 rungs,
    against the JAX package's golden outputs
    (``tests/data/torch_port_golden.npz``);
-7. prints one ``{"kernels": [...]}`` line and, last, the status line.
+8. prints one ``{"kernels": [...]}`` line and, last, the status line.
 
 Every failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available or when
@@ -1197,11 +1212,15 @@ def phase_throughput(pipe, batches, card: str, windows: int = 3,
     return ips
 
 
-def profile_path(pipe, batches, card: str, name: str = "serve"):
+PROFILED: dict = {}   # profile name -> wall and device busy ms of its pass
+
+
+def profile_path(pipe, batches, card: str, name: str = "serve", key=None):
     """One more pass over the batches under ``torch.profiler``: device
     busy time by kernel against the wall time (the profiler's own host
     cost inflates the wall, so the idle share is an upper bound).  The
-    trace goes to build/chip_smoke/<name>_trace.json.  Returns (launches,
+    trace goes to build/chip_smoke/<name>_trace.json.  ``key``, where
+    given, is every batch's key (else the stream's keys).  Returns (launches,
     device ms in all) per device kernel name (spaces removed), or None
     where the profiler saw no device time."""
     import torch
@@ -1218,13 +1237,15 @@ def profile_path(pipe, batches, card: str, name: str = "serve"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for raw in batches:
-            pipe.detect_batch(raw)
+            pipe.detect_batch(raw, key=key)
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
     quant = [e.key for e in rows if "quantize" in e.key]
     check(not quant, f"profile {name}: a quantize pass ran: {quant}")
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    PROFILED[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                          batches=len(batches))
     prof.export_chrome_trace(str(OUT / f"{name}_trace.json"))
     if busy_ms == 0:
         print(f"profile {name}: the profiler saw no device time "
@@ -1515,6 +1536,465 @@ def phase_golden():
               f"RS outputs, logits max |err| {e:.3g} (tol {RUNG_ATOL})")
 
 
+# -- phase 6: adaptive escalation ------------------------------------------
+ESC_K = 3               # an image's tile budget
+ESC_RMS = 6.0           # the watermark's RMS, raw 0..255 units
+ESC_SIGMA = 90.0        # noise on the tile round 1 picks
+# mean |logit| floor of the margin check: a numpy model of the
+# correlation path at full width puts flat-filled tiles below 0.015 and
+# clean ones above 1.28
+ESC_MARGIN = 0.5
+ESC_DAMAGED = tuple(range(0, 22, 2))   # 11 of 32 rows: ragged rounds
+ESC_KEY = 5
+ESC_FIELDS = ("message_bits", "ok", "n_corrected", "logits")
+RS_CODES = ((4, 15, 11), (8, 32, 24))  # torch_rs on the card
+
+
+def esc_workload(geo: dict, width: dict, raw_hw: int, b: int,
+                 rms: float = ESC_RMS):
+    """A corr-only detector (full width, head weights zeroed: every conv
+    still runs, the logits come from the correlation bank), a random
+    48-bit message, and ``b`` synthetic raw float images with the bank's
+    patterns, signed by the message's RS codeword and scaled to RMS
+    ``rms``, added to every tile cell of the centre crop."""
+    from repro_torch.core.extractor import init_extractor_numpy
+    from repro_torch.core.rs.codec import DEFAULT_CODE, rs_encode
+    from repro_torch.data.pipeline import synth_image
+    p = init_extractor_numpy(0, tile=geo["tile"], **width)
+    p["head"]["w"] = p["head"]["w"] * 0.0
+    msg = np.random.default_rng(0).integers(0, 2, DEFAULT_CODE.message_bits)
+    cw = rs_encode(DEFAULT_CODE, msg)
+    wm = np.tensordot((2.0 * cw - 1.0).astype(np.float32), p["corr"], axes=1)
+    wm *= rms / np.sqrt(np.mean(wm * wm))
+    t, img = geo["tile"], geo["img_size"]
+    o = (raw_hw - img) // 2
+    raw = np.stack([synth_image(i, raw_hw) for i in range(b)]).astype(
+        np.float32)
+    for y in range(o, o + img, t):
+        for x in range(o, o + img, t):
+            raw[:, y:y + t, x:x + t] += wm
+    return p, msg, raw
+
+
+def esc_damage(raw, offs, rows, tile: int, sigma=None, fill=None):
+    """uint8 images with Gaussian noise (``sigma``) or a flat ``fill`` on
+    the tile at raw offsets ``offs[i]`` of each row in ``rows``."""
+    rng = np.random.default_rng(1)
+    out = raw.copy()
+    for i in rows:
+        y, x = offs[i]
+        if fill is not None:
+            out[i, y:y + tile, x:x + tile] = fill
+        else:
+            out[i, y:y + tile, x:x + tile] += rng.normal(0.0, sigma,
+                                                         (tile, tile, 3))
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def plain_escalation(st, raw, keys) -> dict:
+    """Escalation replayed through the plain versions on ``raw``'s
+    device: every plan column's tiles and logits for every row, then the
+    rounds (RS failure, or mean |sum| below the margin, on the host), the
+    sums in round order.  ``thin`` marks rows where some sum a decision
+    read had an |entry| within 10x the comparison's tolerance."""
+    import torch
+    from repro_torch.core import tiling
+    from repro_torch.kernels import fused_extractor as fx
+    from repro_torch.kernels import fused_tile_preprocess as ftp
+    from repro_torch.kernels import rs_decode as rs
+    cfg, k, margin = st.cfg, st.policy.max_tiles, st.policy.margin
+    b = raw.shape[0]
+    plan = tiling.escalation_offsets(cfg.strategy, keys, (cfg.img_size,) * 2,
+                                     cfg.tile, k).to(raw.device)
+    rounds = [fx.fused_extractor_plain(ftp.fused_tile_preprocess_plain(
+        raw, plan[:, r].contiguous(), resize=cfg.resize_src,
+        crop=cfg.img_size, tile=cfg.tile), st.packed_params)
+        for r in range(k)]
+    acc = rounds[0].clone()
+    out = {n: v.clone() for n, v in rs.rs_decode_plain(
+        (acc > 0).to(torch.int32)).items()}
+    used = np.ones(b, np.int32)
+    smallest = acc.abs().min(dim=1).values.cpu().numpy()
+
+    def wants(ok, sums):
+        need = ~ok.cpu().numpy()
+        if margin > 0.0:
+            need |= np.abs(sums.cpu().numpy()).mean(axis=-1) < margin
+        return need
+
+    need = wants(out["ok"], acc)
+    for r in range(1, k):
+        idx = np.nonzero(need)[0]
+        if not idx.size:
+            break
+        i = torch.as_tensor(idx, device=raw.device)
+        acc[i] = acc[i] + rounds[r][i]
+        o = rs.rs_decode_plain((acc[i] > 0).to(torch.int32))
+        for n in out:
+            out[n][i] = o[n]
+        used[idx] = r + 1
+        smallest[idx] = np.minimum(smallest[idx], acc[i].abs().min(
+            dim=1).values.cpu().numpy())
+        need = np.zeros(b, bool)
+        need[idx] = wants(o["ok"], acc[i])
+    res = {n: out[n].cpu().numpy() for n in ("message_bits", "ok",
+                                             "n_corrected")}
+    return dict(res, logits=acc.cpu().numpy(), tiles_used=used,
+                smallest=smallest)
+
+
+def hold_to_plain(got: dict, ref: dict, tol: float, k: int,
+                  what: str) -> int:
+    """Logits within ``tol``; integers and tiles_used exact on every row
+    whose decisions read sums clear of 10x the larger of the observed
+    deviation and k x the fp32 tolerance (at fp32: 10x ``tol``).
+    Returns that row count."""
+    e = float(np.abs(got["logits"] - ref["logits"]).max())
+    check(e <= tol, f"{what}: logits differ from the plain replay by {e} "
+          f"> {tol}")
+    sure = ref["smallest"] > 10 * max(e, k * logit_tol(ref["logits"]))
+    for n in ("message_bits", "ok", "n_corrected", "tiles_used"):
+        check(np.array_equal(got[n][sure], ref[n][sure]),
+              f"{what}: {n} differs from the plain replay on a margined row")
+    return int(sure.sum())
+
+
+def esc_tol(st, logits) -> float:
+    """k x the rung's logit tolerance (1e-4 (1 + max|logit|) at fp32)."""
+    k = st.policy.max_tiles
+    if st.cfg.decode_dtype == "fp32":
+        return k * logit_tol(logits)
+    return k * RUNG_ATOL
+
+
+def count_syncs(fn) -> dict:
+    """Synchronizing CUDA calls ``fn`` makes, as torch's sync debug mode
+    reports them (a D2H copy, a blocking H2D copy, a wait on the
+    stream): {"n": count, "at": {"file:line": count}} by the Python line
+    that made each."""
+    import collections
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    at = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                             for w in seen if "synchroniz" in str(w.message))
+    return {"n": sum(at.values()), "at": dict(at)}
+
+
+def esc_ips(pipe, raw, key, n: int = 20) -> float:
+    """Images/s of ``n`` detect_batch calls on one host batch under one
+    key (its damaged tiles are where that key's round 1 looks)."""
+    import torch
+    pipe.detect_batch(raw, key=key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        pipe.detect_batch(raw, key=key)
+    return n * raw.shape[0] / (time.perf_counter() - t0)
+
+
+def esc_checks(dev, geo=FULL, width=WIDTH, raw_hw=RAW, b=32,
+               damaged=ESC_DAMAGED, rms=ESC_RMS) -> dict:
+    """Checks 1-6 of the escalation phase on ``dev`` (the CPU runs them
+    at a small size, without the launch counts): the workload, k = 1,
+    k = 3 with its launches, the margin trigger, ``decode_all_keyed``
+    against the rounds, and the plain replay."""
+    import torch
+    from repro_torch.core import prng, tiling
+    from repro_torch.core.detect import DetectionConfig, DetectionPipeline
+    from repro_torch.core.transforms import IMAGENET_MEAN, IMAGENET_STD
+    from repro_torch.kernels import ops
+    on_card = torch.device(dev).type == "cuda"
+    p, msg, clean_f = esc_workload(geo, width, raw_hw, b, rms)
+    t, img = geo["tile"], geo["img_size"]
+    o = (raw_hw - img) // 2
+    key = prng.key(ESC_KEY)
+
+    def pipe(k=1, margin=0.0):
+        return DetectionPipeline(DetectionConfig(
+            **geo, escalate_tiles=k, escalate_margin=margin), p,
+            ground_truth_bits=msg, device=dev)
+
+    p1, p3, pm = pipe(), pipe(ESC_K), pipe(ESC_K, ESC_MARGIN)
+    st = p3.stages
+    keys = st.image_keys(key, b)
+    offs = tiling.tile_first_offsets(geo.get("strategy", "random_grid"),
+                                     keys, img_size=img, tile=t).numpy()
+    rest = [i for i in range(b) if i not in damaged]
+    clean = esc_damage(clean_f, offs + o, (), t)
+    noised = esc_damage(clean_f, offs + o, damaged, t, sigma=ESC_SIGMA)
+    flat = esc_damage(clean_f, offs + o, damaged, t, fill=128.0)
+
+    # the 288 -> 288 resize is the identity: the ingested tile is the
+    # watermarked raw pixels under the affine, so the watermark survives
+    tiles = st.ingest_keyed(st.to_device(clean), keys).cpu().numpy()
+    want = np.stack([clean[i, o + y:o + y + t, o + x:o + x + t]
+                     for i, (y, x) in enumerate(offs)]).astype(np.float32)
+    want = (want / np.float32(255.0) - IMAGENET_MEAN) / IMAGENET_STD
+    e = float(np.abs(tiles - want).max())
+    check(e <= INGEST_ATOL, f"escalation: the ingest is not the identity "
+          f"resize on the watermark ({e})")
+
+    # 1. one tile: the damaged rows fail, the clean rows match
+    o1 = p1.detect_batch(noised, key=key)
+    check("tiles_used" not in o1, "k = 1 reports tiles_used")
+    check(o1["match"][list(damaged)].mean() <= 0.2 and
+          o1["match"][rest].all(),
+          f"k = 1: damaged rows match {o1['match'][list(damaged)].mean()}, "
+          f"clean rows {o1['match'][rest].mean()}")
+
+    # 2. three tiles, counted (6.)
+    if on_card:
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    o3 = p3.detect_batch(noised, key=key)
+    counts = ops.launch_counts()
+    used = o3["tiles_used"]
+    n_rounds = int(used.max()) - 1
+    sub_batches = [int((used > r).sum()) for r in range(1, ESC_K)]
+    check(o3["match"][list(damaged)].mean() >= 0.8,
+          f"k = 3: damaged rows match {o3['match'][list(damaged)].mean()}")
+    check(np.array_equal(used > 1, ~o1["ok"]),
+          f"k = 3: tiles_used {used.tolist()} against round-1 ok "
+          f"{o1['ok'].astype(int).tolist()}")
+    stay = used == 1
+    for n in ESC_FIELDS:
+        check(np.array_equal(o3[n][stay], o1[n][stay]),
+              f"k = 3: {n} of a row that did not escalate differs from k = 1")
+    want_counts = dict(fused_tile_preprocess=1 + n_rounds,
+                       fused_extractor=1 + n_rounds, rs_decode=1 + n_rounds)
+    if on_card:
+        check({n: c for n, c in counts.items() if c} == want_counts,
+              f"k = 3: launches {counts}, expected {want_counts}")
+
+    # 3. the margin trigger on flat-filled round-1 tiles
+    of1 = p1.detect_batch(flat, key=key)
+    om = pm.detect_batch(flat, key=key)
+    flat_mean = float(np.abs(of1["logits"][list(damaged)]).mean(axis=1).max())
+    check((om["tiles_used"][list(damaged)] >= 2).all() and
+          (om["tiles_used"][rest] == 1).all() and om["match"].all(),
+          f"margin {ESC_MARGIN}: tiles_used {om['tiles_used'].tolist()}, "
+          f"match {om['match'].astype(int).tolist()}")
+
+    # 4. all k tiles at once == the rounds, bit for bit, counted
+    raw_d = st.to_device(noised)
+    if on_card:
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    all_k = st.decode_all_keyed(raw_d, keys)
+    all_counts = ops.launch_counts()
+    if on_card:
+        check(all_counts["fused_tile_preprocess"] == 1 and
+              all_counts["fused_extractor"] == 1,
+              f"decode_all_keyed launches {all_counts}")
+    check(torch.equal(all_k[:, 0], st.decode_keyed(
+        st.ingest_keyed(raw_d, keys), keys)), "decode_all_keyed column 0 "
+        "differs from round 1")
+    for r in range(1, ESC_K):
+        check(torch.equal(all_k[:, r], st.escalate_round(raw_d, keys, r)),
+              f"decode_all_keyed column {r} differs from escalate_round")
+
+    # 5. the plain replay
+    ref = plain_escalation(st, raw_d, keys)
+    tol = esc_tol(st, ref["logits"])
+    n_sure = hold_to_plain(o3, ref, tol, ESC_K, "k = 3")
+    return dict(p=p, msg=msg, key=key, pipes=(p1, p3), clean=clean,
+                noised=noised, counts=counts, decode_all_counts=all_counts,
+                sub_batches=sub_batches, rounds=n_rounds,
+                tiles_used=used.tolist(), replay_rows_exact=n_sure,
+                match_k1=float(o1["match"][list(damaged)].mean()),
+                match_k3=float(o3["match"][list(damaged)].mean()),
+                flat_round1_mean_abs_logit=flat_mean,
+                margin_tiles_used=om["tiles_used"].tolist())
+
+
+def esc_serve(flags, batches, card: str) -> dict:
+    """The launcher's escalation on the end-to-end phase's stream:
+    launches counted (1 + the batch's rounds per kernel a batch), batch 0
+    held to the plain replay."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    args = serve_lib.parse_args(["--batch", "32", "--img", "256", "--tile",
+                                 "64", "--device", "cuda", *flags])
+    pipe = serve_lib.build_pipeline(args)
+    sample, _ = serve_lib.make_batches(args)
+    serve_lib.warm_up(pipe, sample)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rep, results = serve_lib.serve(pipe, batches)
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    per = sum(1 + int(r["tiles_used"].max()) - 1 for r in results)
+    want = dict(fused_tile_preprocess=per, fused_extractor=per,
+                rs_decode=per)
+    check(counts == want, f"serve {' '.join(flags)}: launches {counts}, "
+          f"expected {want}")
+    st = pipe.stages
+    keys = st.image_keys(st.batch_key(0), 32)
+    ref = plain_escalation(st, st.to_device(batches[0]), keys)
+    n_sure = hold_to_plain(results[0], ref, esc_tol(st, ref["logits"]),
+                           ESC_K, f"serve {' '.join(flags)}")
+    used = np.concatenate([r["tiles_used"] for r in results])
+    print(f"serve {' '.join(flags)}: {rep.images} images in "
+          f"{rep.wall_s:.4f} s = {rep.throughput_ips:.1f} images/s on "
+          f"{card}; launches {json.dumps(counts)}; tiles a batch "
+          f"{[int(r['tiles_used'].sum()) for r in results]}; batch 0 "
+          f"equals the plain replay ({n_sure}/32 rows exact)")
+    return dict(images_per_s=rep.throughput_ips, launches=counts,
+                tiles_used_mean=float(used.mean()),
+                ok_share=float(np.mean([r["ok"].mean() for r in results])),
+                replay_rows_exact=n_sure)
+
+
+def rs_code_words(code, rng, n: int) -> np.ndarray:
+    """``n`` words of ``code``: codewords with 0..t+2 symbol errors and
+    uniform words, in turn."""
+    import torch
+    from repro_torch.core.rs import torch_rs
+    m, nn, k = code.m, code.n, code.k
+    cw = torch_rs.make_encoder(code)(torch.as_tensor(
+        rng.integers(0, 2, (n, k * m)))).numpy()
+    for i, row in enumerate(cw):
+        n_err = i % (code.t + 4)
+        if n_err == code.t + 3:
+            row[:] = rng.integers(0, 2, nn * m)
+            continue
+        for pos in rng.choice(nn, n_err, replace=False):
+            flip = int(rng.integers(1, 1 << m))
+            row[pos * m:(pos + 1) * m] ^= (flip >> np.arange(m - 1, -1, -1)
+                                           ) & 1
+    return cw.astype(np.int32)
+
+
+def esc_rs_and_attacks(dev, rng, card: str) -> dict:
+    """Checks 8 and 9: ``torch_rs`` on the card equals its CPU run at the
+    other codes (and the RS kernel equals it at the default code on every
+    {0, 1} word of ``rs_words``), with call ms at B = 32 and 65,536; each
+    ``ATTACKS`` entry on the card equals its CPU run within 1e-5, the
+    jpeg elements beyond it only where a coefficient sits within 1e-4
+    of a half-step."""
+    import torch
+    from repro_torch.core import transforms
+    from repro_torch.core.rs import torch_rs
+    from repro_torch.core.rs.codec import DEFAULT_CODE, RSCode
+    from repro_torch.kernels import rs_decode as rs
+    fields = ("message_bits", "codeword_bits", "n_corrected", "ok")
+    out = {"rs_ms": {}}
+    words = rs_words(rng, 16, 64)
+    got = torch_rs.make_batch_decoder(DEFAULT_CODE)(
+        torch.as_tensor(words).to(dev))
+    want = rs.rs_decode_cuda(torch.as_tensor(words).to(dev))
+    for n in fields:
+        check(torch.equal(got[n], want[n]),
+              f"torch_rs (4, 15, 12) {n} differs from the RS kernel")
+    for mnk in ((4, 15, 12), *RS_CODES):
+        code = RSCode(*mnk)
+        dec = torch_rs.make_batch_decoder(code)
+        w = rs_code_words(code, rng, 4096)
+        cpu = dec(torch.as_tensor(w))
+        card_ = dec(torch.as_tensor(w).to(dev))
+        for n in fields:
+            check(np.array_equal(card_[n].cpu().numpy(), cpu[n].numpy()),
+                  f"torch_rs {mnk} {n}: the card differs from the CPU")
+        check(set(np.unique(cpu["n_corrected"].numpy())) >=
+              {-1, 0, code.t}, f"torch_rs {mnk}: outcomes not mixed")
+        ms = {}
+        for B in (32, 65536):
+            wb = torch.as_tensor(w[np.arange(B) % len(w)]).to(dev)
+            ms[f"torch_rs_{B}"] = call_ms(lambda: dec(wb), iters=10)
+            if mnk == (4, 15, 12):
+                ms[f"kernel_{B}"] = call_ms(lambda: rs.rs_decode_cuda(wb))
+        out["rs_ms"]["-".join(map(str, mnk))] = ms
+        print(f"torch_rs {mnk}: card == CPU on 4096 words; call ms "
+              f"{json.dumps({k: round(v, 4) for k, v in ms.items()})} on "
+              f"{card}")
+    x = rng.normal(0.0, 1.0, (8, 256, 256, 3)).astype(np.float32)
+    xc, xd = torch.as_tensor(x), torch.as_tensor(x).to(dev)
+    errs = {}
+    for name, fn in transforms.ATTACKS.items():
+        a, c = fn(xc).numpy(), fn(xd).cpu().numpy()
+        e = np.abs(a - c)
+        errs[name] = float(e.max())
+        if name != "jpeg_50":
+            check(errs[name] <= INGEST_ATOL, f"attack {name}: card vs CPU "
+                  f"{errs[name]}")
+            continue
+        sc = transforms.jpeg_coefficients(xc, 50)[0].numpy()
+        near = np.abs(sc - np.floor(sc) - 0.5) < 1e-4
+        block = np.repeat(np.repeat(near.any(axis=(2, 4)), 8, axis=1), 8,
+                          axis=2)
+        off = e > INGEST_ATOL
+        check(not (off & ~block).any(), "attack jpeg_50: the card differs "
+              "from the CPU away from a half-step")
+        out["jpeg_half_steps"] = int(near.sum())
+        out["jpeg_elements_off"] = int(off.sum())
+    out["attack_max_abs_err"] = errs
+    print(f"attacks on (8, 256, 256, 3): card vs CPU max |err| "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}; "
+          f"jpeg_50: {out['jpeg_half_steps']} coefficients within 1e-4 of a "
+          f"half-step, {out['jpeg_elements_off']} elements beyond "
+          f"{INGEST_ATOL}")
+    return out
+
+
+def phase_escalation(dev, rng, card: str, batches) -> dict:
+    """The escalation path at full width on the card: checks 1-9, images
+    per second at k = 1 and 3 on the clean and the damaged batch, a
+    profiled escalated pass, host syncs a batch, sub-batch sizes."""
+    out = esc_checks(dev)
+    p1, p3 = out.pop("pipes")
+    key, clean, noised = out.pop("key"), out.pop("clean"), out.pop("noised")
+    out.pop("p"), out.pop("msg")
+    all_k = {n: c for n, c in out["decode_all_counts"].items() if c}
+    print(f"escalation: k = 1 damaged rows match {out['match_k1']:.3f}, "
+          f"k = {ESC_K} {out['match_k3']:.3f}; tiles_used {out['tiles_used']}"
+          f"; sub-batches a round {out['sub_batches']}; launches "
+          f"{json.dumps(out['counts'])}, decode_all_keyed "
+          f"{json.dumps(all_k)}"
+          f"; the plain replay equal ({out['replay_rows_exact']}/32 rows "
+          f"exact); the margin {ESC_MARGIN} escalated the flat rows "
+          f"(round-1 mean |logit| <= {out['flat_round1_mean_abs_logit']:.4f})")
+    ips = {}
+    for name, pipe, raw in (("k1_clean", p1, clean), ("k3_clean", p3, clean),
+                            ("k1_damaged", p1, noised),
+                            ("k3_damaged", p3, noised)):
+        ips[name] = esc_ips(pipe, raw, key)
+    out["images_per_s"] = ips
+    print(f"escalation images/s on {card}: "
+          f"{json.dumps({k: round(v, 1) for k, v in ips.items()})}")
+    out["syncs"] = {n: count_syncs(lambda: pp.detect_batch(raw, key=key))
+                    for n, pp, raw in (("k1_clean", p1, clean),
+                                       ("k3_clean", p3, clean),
+                                       ("k3_damaged", p3, noised))}
+    print(f"escalation: synchronizing CUDA calls a batch "
+          f"{json.dumps({n: v['n'] for n, v in out['syncs'].items()})} "
+          f"({out['rounds']} rounds); by line "
+          f"{json.dumps({n: v['at'] for n, v in out['syncs'].items()})}")
+    traced = profile_path(p3, [noised] * 3, card, "escalation", key=key)
+    prof = PROFILED.get("escalation")
+    if traced and prof:
+        out["device_busy_ms_a_batch"] = prof["busy_ms"] / 3
+        out["idle_share"] = 1 - prof["busy_ms"] / prof["wall_ms"]
+        hits = [v for k, v in traced.items() if f"::{INGEST_KERNEL}(" in k]
+        out["ingest_launches_traced"] = hits[0][0] if hits else None
+        check(not hits or hits[0][0] == 3 * (1 + out["rounds"]),
+              f"escalation: the trace shows {hits} tile kernel launches")
+    out["serve"] = {"fp32": esc_serve(["--escalate-tiles", str(ESC_K)],
+                                      batches, card),
+                    "int8": esc_serve(["--decode-dtype", "int8",
+                                       "--escalate-tiles", str(ESC_K)],
+                                      batches, card)}
+    out.update(esc_rs_and_attacks(dev, rng, card))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1592,6 +2072,7 @@ def main() -> int:
     print(f"fused_preprocess: {phases['fused_preprocess']['serve_device_ms']}"
           f" ms of device time a launch in the staged path's profiled pass, "
           f"on {card}")
+    escalation = phase_escalation(dev, rng, card, batches)
     phase_golden()
     phases["rs_decode"]["device_ms"] = rs_device_ms(dev, rng, card)
 
@@ -1650,6 +2131,17 @@ def main() -> int:
         if name in ("fused_tile_preprocess", "fused_extractor",
                     "fused_preprocess"):
             entry["serve_device_ms"] = phases[name]["serve_device_ms"]
+        if name in ("fused_tile_preprocess", "fused_extractor",
+                    "rs_decode"):
+            # each counted run of the escalation path: one launch a
+            # round that ran (one for all k tiles in decode_all_keyed)
+            entry["escalation_launches"] = {
+                "detect_batch_k3": escalation["counts"][name],
+                **{f"serve_{dt}_k3": escalation["serve"][dt]["launches"][
+                    name] for dt in ("fp32", "int8")}}
+            if name != "rs_decode":
+                entry["escalation_launches"]["decode_all_keyed"] = \
+                    escalation["decode_all_counts"][name]
         if name == "fused_preprocess":
             entry.update({k: phases[name][k] for k in (
                 "kernel", "registers", "spill_bytes",
@@ -1684,7 +2176,8 @@ def main() -> int:
         kernels.append(entry)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phases": phases,
-         "rungs": rungs, "window_ips": window_ips, "configs": configs},
+         "rungs": rungs, "window_ips": window_ips, "configs": configs,
+         "escalation": escalation},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

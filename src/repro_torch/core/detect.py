@@ -20,8 +20,12 @@ RS runs on the card (``rs_mode="device"``), per row on the host
 (``cpu_sync``) or in a thread pool with a codebook (``cpu_pool``).
 qrmark with device RS goes through the registry's fused path
 (``StageRegistry.fused_keyed``); every other configuration through the
-staged one (ingest -> decode -> bits -> ``rs_correct``).  Escalation
-and the serving cache are not ported yet.
+staged one (ingest -> decode -> bits -> ``rs_correct``).  With
+``escalate_tiles`` k > 1 (``tiled`` or ``qrmark``), images whose round-1
+RS failed, or whose mean |logit| is below ``escalate_margin``, are
+decoded again on up to k - 1 more tiles of their plan, their soft bits
+summed (``StageRegistry.escalate``); the result gains a ``tiles_used``
+column.  The serving cache is not ported yet.
 
 The pipeline runs on the card by default: ``device=None`` means
 ``"cuda"``, and raises if no GPU is present.  ``device="cpu"`` runs the
@@ -44,16 +48,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.rs.codec import DEFAULT_CODE, RSCode
-from repro_torch.core.stages import StageRegistry
+from repro_torch.core.stages import StageRegistry, host_numpy
 
 
 @dataclasses.dataclass
 class DetectionConfig:
     """Configuration of the detection engines, with the reference's
-    fields, names and defaults.  Every mode, ingest path, RS engine,
-    decode schedule and decode dtype runs; a non-default code with
-    device RS, escalation or a serving-cache setting raises
-    ``NotImplementedError`` when a pipeline is built (see
+    fields, names and defaults.  Every mode, ingest path, RS engine and
+    code, decode schedule and decode dtype runs, and escalation
+    (``escalate_tiles``, ``escalate_margin``); a serving-cache setting
+    raises ``NotImplementedError`` when a pipeline is built (see
     ``stages.check_config``)."""
     tile: int = 64
     img_size: int = 256
@@ -108,14 +112,20 @@ class DetectionPipeline:
         self._stats_lock = threading.Lock()
         self.stats: Dict[str, float] = {"batches": 0, "images": 0}
 
-    def _finish(self, msg, ok, ncorr, logits) -> Dict[str, np.ndarray]:
+    def _finish(self, msg, ok, ncorr, logits,
+                tiles_used=None) -> Dict[str, np.ndarray]:
         """The sink: the single place device tensors become numpy (the
-        host RS engines hand numpy already)."""
+        host RS engines hand numpy already).  ``tiles_used`` is reported
+        only when escalation is configured, so ``escalate_tiles=1``
+        results keep the schema they had without it."""
         with self._stats_lock:
             self.stats["batches"] += 1
             self.stats["images"] += logits.shape[0]
-        out = {"message_bits": _numpy(msg), "ok": _numpy(ok),
-               "n_corrected": _numpy(ncorr), "logits": _numpy(logits)}
+        out = {"message_bits": host_numpy(msg), "ok": host_numpy(ok),
+               "n_corrected": host_numpy(ncorr),
+               "logits": host_numpy(logits)}
+        if tiles_used is not None and self.stages.policy.enabled:
+            out["tiles_used"] = np.asarray(tiles_used)
         if self.gt is not None:
             out["match"] = np.all(
                 out["message_bits"] == self.gt[None, : msg.shape[1]],
@@ -127,9 +137,12 @@ class DetectionPipeline:
                      ) -> Dict[str, np.ndarray]:
         """Synchronous detection of one raw uint8 batch (numpy or torch,
         (b, H, W, 3)).  ``key`` (a (2,) key from ``prng``) defaults to
-        the offline discipline ``fold_in(key(seed), batch_seq)``.
-        ``true_b`` only matters with escalation, which this slice does
-        not run; it is accepted for the reference's signature."""
+        the offline discipline ``fold_in(key(seed), batch_seq)``.  With
+        ``escalate_tiles > 1`` the escalation rounds run after the
+        unchanged one-tile round: the result gains ``tiles_used`` and
+        ``logits`` are the summed soft bits of escalated images.  A
+        caller that padded the batch passes ``true_b``, the count of
+        real rows, so pad rows never escalate."""
         raw = self.stages.to_device(raw_batch)
         b = raw.shape[0]
         if key is None:
@@ -138,20 +151,23 @@ class DetectionPipeline:
         keys = self.stages.image_keys(key, b)
         if self.stages.fused_keyed is not None:
             rs_out, logits = self.stages.fused_keyed(raw, keys)
-            return self._finish(rs_out["message_bits"], rs_out["ok"],
-                                rs_out["n_corrected"], logits)
-        x = self.stages.ingest_keyed(raw, keys)
-        logits = self.stages.decode_keyed(x, keys)
-        msg, ok, ncorr = self.stages.rs_correct(self.stages.bits(logits))
-        return self._finish(msg, ok, ncorr, logits)
+            msg, ok, ncorr = (rs_out["message_bits"], rs_out["ok"],
+                              rs_out["n_corrected"])
+        else:
+            x = self.stages.ingest_keyed(raw, keys)
+            logits = self.stages.decode_keyed(x, keys)
+            msg, ok, ncorr = self.stages.rs_correct(
+                self.stages.bits(logits))
+        tiles_used = None
+        if self.stages.policy.enabled:
+            msg, ok, ncorr, logits, tiles_used = \
+                self.stages.escalate_prefix(raw, keys, msg, ok, ncorr,
+                                            logits, true_b)
+        return self._finish(msg, ok, ncorr, logits, tiles_used)
 
     def close(self):
         """Stop the RS pool's threads (``rs_mode="cpu_pool"``)."""
         self.stages.close()
-
-
-def _numpy(a) -> np.ndarray:
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def verify_against_key(message_bits: np.ndarray, key_bits: np.ndarray,

@@ -16,7 +16,10 @@ off, where
   ``y0 ^ y1`` of ``threefry2x32(k, (i >> 32, i & 0xFFFFFFFF))``;
 * ``randint`` splits its key into two, draws 32 bits from each and
   folds them into the span with uint32 arithmetic (JAX's
-  ``random._randint``).
+  ``random._randint``);
+* ``permutation(k, n)`` sorts ``arange(n)`` by 32 random bits a round,
+  ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each on the second key of a
+  split (JAX's ``random._shuffle``).
 
 A key is a ``(..., 2)`` int64 tensor holding two uint32 words (torch's
 ``uint32`` lacks the arithmetic ops, so every op masks to 32 bits).
@@ -26,6 +29,7 @@ global generator state.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import torch
@@ -143,3 +147,24 @@ def randint(keys: torch.Tensor, shape: Shape, minval: int, maxval: int
     offset = offset % span
     value = (minval + offset + 2 ** 31) % 2 ** 32 - 2 ** 31
     return value.to(torch.int32)
+
+
+def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for an integer ``n``: keys
+    (..., 2) -> int32 permutations of ``arange(n)``, (..., n).  Each
+    round splits the key, draws 32 bits an element from the second half
+    and sorts (bits, values) by the bits.  XLA's sort is not declared
+    stable, so the sort here is stable and only equal draws (two 32-bit
+    words that collide) could order differently."""
+    n = int(n)
+    rounds = int(math.ceil(3 * math.log(max(1, n))
+                           / math.log(2 ** 32 - 1)))
+    x = torch.arange(n, dtype=torch.int64, device=keys.device).expand(
+        *keys.shape[:-1], n)
+    for _ in range(rounds):
+        k = split(keys, 2)
+        keys, sub = k[..., 0, :], k[..., 1, :]
+        order = torch.sort(random_bits(sub, (n,)), dim=-1,
+                           stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x.to(torch.int32)

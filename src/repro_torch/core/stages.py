@@ -1,7 +1,8 @@
 """Stage registry (counterpart of ``repro.core.stages.StageRegistry``).
 
-The single definition of the ingest / decode / RS stage functions and
-the RNG-key discipline, built once per (config, params, device):
+The single definition of the ingest / decode / RS stage functions, the
+RNG-key discipline and adaptive escalation, built once per (config,
+params, device):
 
 1. per-image ``fold_in`` keys (:meth:`StageRegistry.image_keys`);
 2. ingest: tile-first (``random_grid`` offsets from the keys, then
@@ -16,44 +17,86 @@ the RNG-key discipline, built once per (config, params, device):
    flat or a blocked schedule, on weights packed once at
    ``cfg.decode_dtype``: fp32, bf16 or int8) or, with ``fused_decode``
    off or outside qrmark, the plain fp32 ``extractor_forward``;
-4. ``logits > 0`` then RS: the batched Berlekamp-Welch kernel
-   (``rs_mode="device"``), the scalar codec per row (``cpu_sync``), or
-   the thread pool with its codebook (``cpu_pool``).
+4. ``logits > 0`` then RS: ``ops.rs_decode`` (``rs_mode="device"``: the
+   t = 1 kernel for the default code, the batched ``torch_rs`` for any
+   other), the scalar codec per row (``cpu_sync``), or the thread pool
+   with its codebook (``cpu_pool``);
+5. with ``escalate_tiles`` k > 1 (:class:`EscalationPolicy`), images
+   whose RS failed, or whose mean |logit| is below ``escalate_margin``,
+   are decoded again on tile r of their k-tile plan
+   (``tiling.escalation_offsets``) in round r, their soft bits summed,
+   and RS run again on the sums (:meth:`StageRegistry.escalate`).
 
 PyTorch runs eagerly, so there is no ``jit``: :meth:`fused_keyed` (qrmark
 with device RS) is the steps in sequence.  Keys are integer hashing,
 bit-exact anywhere, and live on the host; the offsets they give are
-copied to the device with the raw batch.  Configurations outside the
-ported slices raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+copied to the device with the raw batch.  The serving cache's settings
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import extractor as extractor_lib
 from repro_torch.core import prng, tiling, transforms
+from repro_torch.core.rs import torch_rs
 from repro_torch.core.rs.codec import RSCode, rs_decode
 from repro_torch.core.rs.cpu_pool import RSCorrectionPool
 from repro_torch.kernels import autotune as autotune_lib
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fused_extractor import check_blocked_schedule
-from repro_torch.kernels.rs_decode import check_code
+from repro_torch.kernels.rs_decode import is_kernel_code
 
 
 def make_device_rs(code: RSCode) -> Callable:
-    """The on-device batched RS engine: the Berlekamp-Welch kernel for
-    the default code it is specialised for (other codes raise)."""
-    check_code(code)
+    """The on-device batched RS engine: the t = 1 kernel for the default
+    code it is specialised for, the batched Berlekamp-Welch ``torch_rs``
+    otherwise, as the reference falls back to ``jax_rs``."""
+    if not is_kernel_code(code):
+        return torch_rs.make_batch_decoder(code)
 
     def decode(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
         return kops.rs_decode(bits, code=code)
 
     return decode
+
+
+def host_numpy(a) -> np.ndarray:
+    """A tensor (copied to the host) or array-like as a numpy array."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+@dataclasses.dataclass(frozen=True)
+class EscalationPolicy:
+    """When and how far to escalate beyond the one-tile fast path
+    (``DetectionConfig.escalate_tiles`` / ``escalate_margin``).
+
+    ``max_tiles`` is the tile budget of an image: round r decodes tile r
+    of its plan, so an image uses 1 to ``max_tiles`` tiles.  An image
+    escalates after a round when RS failed on its summed soft bits, or,
+    with ``margin > 0``, when their mean absolute value is below
+    ``margin``.  ``max_tiles == 1`` turns escalation off."""
+    max_tiles: int = 1
+    margin: float = 0.0
+
+    @property
+    def enabled(self) -> bool:
+        return self.max_tiles > 1
+
+    def wants_escalation(self, ok, logits) -> np.ndarray:
+        """Per-image bool mask over (ok, summed logits), on the host: the
+        mean |logit| is numpy's, as the reference computes it, so equal
+        logits give the reference's decision bit for bit."""
+        need = ~host_numpy(ok).astype(bool)
+        if self.margin > 0.0:
+            need = need | (np.abs(host_numpy(logits)).mean(axis=-1)
+                           < self.margin)
+        return need
 
 
 def _unported(what: str, item: str):
@@ -63,8 +106,9 @@ def _unported(what: str, item: str):
 
 
 def check_config(cfg):
-    """Raise for an invalid configuration, or one outside the ported
-    slices."""
+    """Raise for an invalid configuration (``ValueError``, the
+    reference's rules), or one outside the ported slices
+    (``NotImplementedError``)."""
     if cfg.mode not in ("sequential", "tiled", "qrmark"):
         raise ValueError(f"unknown pipeline mode {cfg.mode!r}")
     if cfg.rs_mode not in ("device", "cpu_pool", "cpu_sync"):
@@ -84,10 +128,19 @@ def check_config(cfg):
         raise ValueError("cache_embedding_threshold must be in [0, 1]")
     if cfg.cache_capacity < 1 or cfg.cache_embedding_capacity < 1:
         raise ValueError("cache capacities must be >= 1")
-    if cfg.rs_mode == "device":
-        check_code(cfg.code)  # other codes need the batched jax_rs twin
-    if cfg.escalate_tiles > 1:
-        _unported("escalation (escalate_tiles > 1)", "9")
+    k = cfg.escalate_tiles
+    if k > 1:
+        if cfg.mode == "sequential":
+            raise ValueError(
+                "escalate_tiles > 1 needs a tile-decoding mode "
+                "(tiled/qrmark); sequential decodes the full image")
+        cap = tiling.max_escalation_tiles(
+            cfg.strategy, (cfg.img_size, cfg.img_size), cfg.tile)
+        if k > cap:
+            raise ValueError(
+                f"escalate_tiles={k} exceeds the {cap} distinct "
+                f"{cfg.strategy!r} tiles of a {cfg.img_size}^2/"
+                f"{cfg.tile}^2 image")
     if cfg.cache_exact or cfg.cache_embedding_threshold > 0.0:
         _unported("the serving cache (cache_exact / "
                   "cache_embedding_threshold)", "13")
@@ -102,6 +155,8 @@ class StageRegistry:
     def __init__(self, cfg, params: dict, device: torch.device):
         check_config(cfg)
         self.cfg = cfg
+        self.policy = EscalationPolicy(max_tiles=cfg.escalate_tiles,
+                                       margin=cfg.escalate_margin)
         self.device = torch.device(device)
         self.base_key = prng.key(cfg.seed)
         self.tile_first = (cfg.tile_first and cfg.mode == "qrmark"
@@ -239,14 +294,16 @@ class StageRegistry:
                 ncorr[i] = res.n_corrected
         return msg, ok, ncorr
 
-    def rs_correct(self, bits: torch.Tensor):
-        """(msg, ok, ncorr) via the configured RS engine: tensors on the
-        pipeline's device from the device engine, numpy arrays from the
-        host engines, which pull the bits to the host here."""
+    def rs_correct(self, bits):
+        """(msg, ok, ncorr) via the configured RS engine, for bits as a
+        tensor or a numpy array: tensors on the pipeline's device from
+        the device engine, numpy arrays from the host engines, which pull
+        the bits to the host here."""
         if self.cfg.rs_mode == "device":
-            out = self._device_rs(bits.to(self.device).contiguous())
+            out = self._device_rs(torch.as_tensor(bits).to(
+                self.device).contiguous())
             return out["message_bits"], out["ok"], out["n_corrected"]
-        return self._rs_host(bits.cpu().numpy())
+        return self._rs_host(host_numpy(bits))
 
     def _fused_keyed(self, raw: torch.Tensor, keys: torch.Tensor):
         """The whole qrmark path with device RS: raw batch + per-image
@@ -254,6 +311,124 @@ class StageRegistry:
         x = self.ingest_keyed(raw, keys)
         logits = self.decode_keyed(x, keys)
         return self._device_rs(self.bits(logits)), logits
+
+    # -- adaptive multi-tile escalation --------------------------------
+    def escalation_plan(self, keys: torch.Tensor) -> torch.Tensor:
+        """(b, k, 2) int32 tile offsets a batch on the host: column 0 is
+        the one-tile draw, so round 1 is the unchanged fast path."""
+        cfg = self.cfg
+        return tiling.escalation_offsets(
+            cfg.strategy, keys, (cfg.img_size, cfg.img_size), cfg.tile,
+            self.policy.max_tiles)
+
+    def _tiles_at(self, raw: torch.Tensor, offs: torch.Tensor
+                  ) -> torch.Tensor:
+        """(b, 2) or (b, k, 2) offsets -> decode-ready tiles (b*k image
+        major), through the tile-first kernel or the staged preprocess
+        and a gather."""
+        cfg = self.cfg
+        # pageable host memory is staged before the call returns, so the
+        # copy needs no wait on the stream
+        offs = offs.contiguous().to(raw.device, non_blocking=True)
+        if self.tile_first:
+            return kops.fused_tile_preprocess(
+                raw, offs, resize=cfg.resize_src, crop=cfg.img_size,
+                tile=cfg.tile)
+        x = self.preprocess(raw)
+        if offs.dim() == 3:
+            return tiling.extract_tiles_k(x, offs, cfg.tile)
+        return tiling.extract_tiles(x, offs, cfg.tile)
+
+    def escalation_tiles(self, raw: torch.Tensor, keys: torch.Tensor,
+                         r: int) -> torch.Tensor:
+        """Decode-ready tiles of column ``r`` of each image's plan."""
+        return self._tiles_at(raw, self.escalation_plan(keys)[:, r])
+
+    def decode_tiles(self, tiles: torch.Tensor) -> torch.Tensor:
+        """Decode-ready tiles -> logits (an escalation round's decode)."""
+        return self.extract(tiles)
+
+    def decode_all_keyed(self, raw: torch.Tensor, keys: torch.Tensor
+                         ) -> torch.Tensor:
+        """All k tiles of every image at once -> (b, k, n_bits) logits:
+        one ingest of the (b, k, 2) plan and one decode of b*k tiles."""
+        plan = self.escalation_plan(keys)
+        b, k = plan.shape[:2]
+        return self.extract(self._tiles_at(raw, plan)).reshape(b, k, -1)
+
+    def escalate_round(self, raw: torch.Tensor, keys: torch.Tensor,
+                       r: int) -> torch.Tensor:
+        """Soft bits of plan column ``r``: the round's ingest, then its
+        decode."""
+        return self.decode_tiles(self.escalation_tiles(raw, keys, r))
+
+    def escalate(self, raw: torch.Tensor, keys: torch.Tensor, msg, ok,
+                 ncorr, logits) -> Tuple:
+        """Adaptive escalation after round 1: each round gathers the
+        images the policy flags from ``raw`` (on the device already),
+        decodes tile r of their plan, adds the soft bits to their sums
+        (float32, round by round) and runs RS on the sums' signs, until
+        no image is flagged or the budget is spent.  The sub-batch is the
+        flagged rows themselves (no padding: every op is batch-stable,
+        so a row's result does not depend on who shares its round).  The
+        plan is drawn once, for the rows round 2 takes (a row's plan
+        depends on its key only, so these are :meth:`escalate_round`'s
+        tiles).  The host waits once a round, for ``ok`` (and with a
+        margin for the sums).  Returns (msg, ok, ncorr, summed logits,
+        tiles_used): RS outputs where the engine made them (tensors on
+        the device, numpy from a host engine), tiles_used numpy; with
+        escalation off, the inputs as they are and tiles_used all
+        ones."""
+        b = logits.shape[0]
+        tiles_used = np.ones(b, np.int32)
+        if not self.policy.enabled:
+            return msg, ok, ncorr, logits, tiles_used
+        on_dev = isinstance(ok, torch.Tensor)
+        msg, ok, ncorr = (a.clone() if on_dev else np.array(a)
+                          for a in (msg, ok, ncorr))
+        acc = logits.to(torch.float32).clone()
+        need = self.policy.wants_escalation(ok, acc)
+        plan_rows = plan = None
+        for r in range(1, self.policy.max_tiles):
+            idx = np.nonzero(need)[0]
+            if idx.size == 0:
+                break
+            if plan is None:
+                plan_rows = idx
+                plan = self.escalation_plan(keys[torch.as_tensor(idx)])
+            at_plan = torch.as_tensor(np.searchsorted(plan_rows, idx))
+            idx_d = torch.as_tensor(idx).to(raw.device, non_blocking=True)
+            new = self.decode_tiles(self._tiles_at(
+                raw.index_select(0, idx_d), plan[at_plan, r]))
+            sub_acc = acc[idx_d] + new
+            acc[idx_d] = sub_acc
+            m2, o2, c2 = self.rs_correct(self.bits(sub_acc))
+            at = idx_d if on_dev else idx
+            msg[at], ok[at], ncorr[at] = m2, o2, c2
+            tiles_used[idx] = r + 1
+            need[:] = False
+            need[idx] = self.policy.wants_escalation(o2, sub_acc)
+        return msg, ok, ncorr, acc, tiles_used
+
+    def escalate_prefix(self, raw: torch.Tensor, keys: torch.Tensor, msg,
+                        ok, ncorr, logits, true_b: Optional[int] = None
+                        ) -> Tuple:
+        """:meth:`escalate` on the first ``true_b`` rows of a padded
+        batch: pad rows keep their round-1 results and never escalate.
+        Returns full-size results either way."""
+        b = logits.shape[0]
+        tb = b if true_b is None else min(true_b, b)
+        if tb >= b:
+            return self.escalate(raw, keys, msg, ok, ncorr, logits)
+        m, o, c, lg, tu = self.escalate(raw[:tb], keys[:tb], msg[:tb],
+                                        ok[:tb], ncorr[:tb], logits[:tb])
+        msg, ok, ncorr = (a.clone() if isinstance(a, torch.Tensor)
+                          else np.array(a) for a in (msg, ok, ncorr))
+        logits = logits.to(torch.float32).clone()
+        tiles = np.ones(b, np.int32)
+        msg[:tb], ok[:tb], ncorr[:tb] = m, o, c
+        logits[:tb], tiles[:tb] = lg, tu
+        return msg, ok, ncorr, logits, tiles
 
     def close(self):
         if self._rs_pool is not None:

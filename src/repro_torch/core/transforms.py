@@ -1,7 +1,8 @@
-"""Preprocessing ops of the unfused ingest (counterpart of
-``repro.core.transforms``): Resize -> CenterCrop -> Normalize, the
-fragmented-kernel baseline of the ``sequential`` and ``tiled`` modes and
-of ``fused_preprocess=False``.
+"""Image transforms (counterpart of ``repro.core.transforms``): the
+preprocessing ops of the unfused ingest, Resize -> CenterCrop ->
+Normalize (the fragmented-kernel baseline of the ``sequential`` and
+``tiled`` modes and of ``fused_preprocess=False``), and the evaluation
+attacks with their registry ``ATTACKS``.
 
 ``resize_to`` reproduces ``jax.image.resize(..., "bilinear")`` with its
 default ``antialias=True``: per spatial axis a float32 weight matrix
@@ -11,8 +12,15 @@ downsampling, columns normalised to sum 1, samples outside the input
 zeroed), applied as JAX's ``_scale_and_translate`` contracts them:
 height first, then width.  An axis whose size does not change is left
 as it is, as JAX skips it.  ``F.interpolate`` is not used: its
-antialiasing filter is another one.  The attack ops come with the
-``ATTACKS`` registry (ROADMAP queue 1 item 8).
+antialiasing filter is another one.
+
+The attacks are plain torch ops on (b, h, w, c) float images on the
+caller's device, differentiable as such: crop and resize (through
+:func:`resize_to`), brightness, contrast, saturation, sharpness, a
+depthwise box blur with zero "SAME" padding, the blockwise 8x8 DCT
+quantisation surrogate of JPEG (edge padding, rounding half to even),
+and a burned-in text overlay.  ``STABLE_SIG_ATTACKS`` names the paper's
+adversarial set.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -45,20 +54,22 @@ def resize_weights(n_in: int, n_out: int, antialias: bool = True
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
-def resize_to(images: torch.Tensor, size: int, *,
+def resize_to(images: torch.Tensor, size, *,
               antialias: bool = True) -> torch.Tensor:
-    """Bilinear resize of (b, h, w, c) float32 images to (b, size, size,
-    c), as ``jax.image.resize(images, ..., "bilinear")``."""
+    """Bilinear resize of (b, h, w, c) float32 images to (b, nh, nw, c),
+    ``size`` an int (square) or (nh, nw), as ``jax.image.resize(images,
+    ..., "bilinear")``."""
+    nh, nw = (size, size) if isinstance(size, int) else size
     b, h, w, c = images.shape
     x = images.permute(0, 3, 1, 2)                  # (b, c, h, w)
-    if h != size:
-        wh = torch.as_tensor(resize_weights(h, size, antialias),
+    if h != nh:
+        wh = torch.as_tensor(resize_weights(h, nh, antialias),
                              device=images.device)
-        x = torch.matmul(wh.T, x)                   # (b, c, size, w)
-    if w != size:
-        ww = torch.as_tensor(resize_weights(w, size, antialias),
+        x = torch.matmul(wh.T, x)                   # (b, c, nh, w)
+    if w != nw:
+        ww = torch.as_tensor(resize_weights(w, nw, antialias),
                              device=images.device)
-        x = torch.matmul(x, ww)                     # (b, c, size, size)
+        x = torch.matmul(x, ww)                     # (b, c, nh, nw)
     return x.permute(0, 2, 3, 1).contiguous()
 
 
@@ -89,3 +100,130 @@ def preprocess_reference(raw: torch.Tensor, *, resize: int = 288,
     x = resize_to(x, resize)
     x = center_crop(x, crop)
     return normalize(x, mean, std)
+
+
+# -- evaluation attacks ------------------------------------------------------
+def attack_crop(images: torch.Tensor, frac: float) -> torch.Tensor:
+    """Keep the central ``frac`` of the area, resize back."""
+    b, h, w, c = images.shape
+    keep = max(int(round((frac ** 0.5) * h)), 4)
+    return resize_to(center_crop(images, keep), (h, w))
+
+
+def attack_resize(images: torch.Tensor, frac: float) -> torch.Tensor:
+    b, h, w, c = images.shape
+    nh, nw = max(int(h * frac), 4), max(int(w * frac), 4)
+    return resize_to(resize_to(images, (nh, nw)), (h, w))
+
+
+def attack_brightness(images: torch.Tensor, factor: float) -> torch.Tensor:
+    return torch.clamp(images * factor, -3.0, 3.0)
+
+
+def attack_contrast(images: torch.Tensor, factor: float) -> torch.Tensor:
+    mu = images.mean(dim=(1, 2, 3), keepdim=True)
+    return torch.clamp(mu + (images - mu) * factor, -3.0, 3.0)
+
+
+def attack_saturation(images: torch.Tensor, factor: float) -> torch.Tensor:
+    grey = images.mean(dim=-1, keepdim=True)
+    return torch.clamp(grey + (images - grey) * factor, -3.0, 3.0)
+
+
+def attack_sharpness(images: torch.Tensor, factor: float) -> torch.Tensor:
+    blur = attack_blur(images)
+    return torch.clamp(blur + (images - blur) * factor, -3.0, 3.0)
+
+
+def attack_blur(images: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """Depthwise k x k box filter, zero "SAME" padding (the extra row
+    and column after, for even k, as XLA pads)."""
+    c = images.shape[-1]
+    kern = torch.full((c, 1, k, k), 1.0 / (k * k), dtype=images.dtype,
+                      device=images.device)
+    lo = (k - 1) // 2
+    x = F.pad(images.permute(0, 3, 1, 2), (lo, k - 1 - lo, lo, k - 1 - lo))
+    return F.conv2d(x, kern, groups=c).permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _dct8() -> np.ndarray:
+    k = np.arange(8)
+    n = np.arange(8)
+    D = np.sqrt(2 / 8) * np.cos(np.pi * (2 * n[None] + 1) * k[:, None] / 16)
+    D[0] /= np.sqrt(2)
+    return D.astype(np.float32)
+
+
+# luminance quantisation table (JPEG Annex K), quality-scaled
+_QTAB = np.array(
+    [[16, 11, 10, 16, 24, 40, 51, 61], [12, 12, 14, 19, 26, 58, 60, 55],
+     [14, 13, 16, 24, 40, 57, 69, 56], [14, 17, 22, 29, 51, 87, 80, 62],
+     [18, 22, 37, 56, 68, 109, 103, 77], [24, 35, 55, 64, 81, 104, 113, 92],
+     [49, 64, 78, 87, 103, 121, 120, 101],
+     [72, 92, 95, 98, 112, 100, 103, 99]], np.float32)
+
+
+def jpeg_coefficients(images: torch.Tensor, quality: int = 50):
+    """The DCT surrogate's steps before its rounding: (coefficients
+    divided by the quantiser, (b, h/8, 8, w/8, 8, c) with h and w padded
+    to multiples of 8 at the edges; the quantiser, broadcastable)."""
+    b, h, w, c = images.shape
+    hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
+    x = images
+    if (hp, wp) != (h, w):
+        x = F.pad(x.permute(0, 3, 1, 2), (0, wp - w, 0, hp - h),
+                  mode="replicate").permute(0, 2, 3, 1)
+    scale = 50.0 / quality if quality < 50 else 2 - quality / 50.0
+    q = torch.clamp(torch.as_tensor(_QTAB, device=images.device) * scale,
+                    min=1.0) / 128.0
+    q = q[None, None, :, None, :, None]
+    D = torch.as_tensor(_dct8(), device=images.device)
+    blocks = x.reshape(b, hp // 8, 8, wp // 8, 8, c)
+    coef = torch.einsum("ij,bhjwkc,lk->bhiwlc", D, blocks, D)
+    return coef / q, q
+
+
+def attack_jpeg(images: torch.Tensor, quality: int = 50) -> torch.Tensor:
+    """Blockwise DCT quantisation surrogate of JPEG compression."""
+    b, h, w, c = images.shape
+    scaled, q = jpeg_coefficients(images, quality)
+    coef = torch.round(scaled) * q
+    D = torch.as_tensor(_dct8(), device=images.device)
+    rec = torch.einsum("ji,bhjwkc,kl->bhiwlc", D, coef, D)
+    return rec.reshape(b, scaled.shape[1] * 8, scaled.shape[3] * 8,
+                       c)[:, :h, :w, :]
+
+
+def attack_overlay_text(images: torch.Tensor, intensity: float = 1.0
+                        ) -> torch.Tensor:
+    """Overlay a fixed block pattern simulating burned-in text."""
+    b, h, w, c = images.shape
+    yy, xx = torch.meshgrid(torch.arange(h, device=images.device),
+                            torch.arange(w, device=images.device),
+                            indexing="ij")
+    band = (yy > h * 3 // 4) & (yy < h * 7 // 8)
+    glyph = ((xx // 6) % 2 == 0) & ((xx > w // 8) & (xx < w * 7 // 8))
+    mask = (band & glyph).to(images.dtype)[None, :, :, None]
+    return images * (1 - mask) + intensity * mask
+
+
+ATTACKS = {
+    "none": lambda x: x,
+    "crop_0.1": lambda x: attack_crop(x, 0.1),
+    "crop_0.5": lambda x: attack_crop(x, 0.5),
+    "resize_0.5": lambda x: attack_resize(x, 0.5),
+    "resize_0.7": lambda x: attack_resize(x, 0.7),
+    "blur": attack_blur,
+    "brightness_2": lambda x: attack_brightness(x, 2.0),
+    "contrast_2": lambda x: attack_contrast(x, 2.0),
+    "saturation_2": lambda x: attack_saturation(x, 2.0),
+    "sharpness_2": lambda x: attack_sharpness(x, 2.0),
+    "jpeg_50": lambda x: attack_jpeg(x, 50),
+    "overlay_text": attack_overlay_text,
+}
+
+# the paper's Stable-Signature adversarial set (Table 2 "Adv." column)
+STABLE_SIG_ATTACKS = ("crop_0.5", "resize_0.7", "jpeg_50", "brightness_2",
+                      "contrast_2", "saturation_2", "sharpness_2",
+                      "overlay_text")

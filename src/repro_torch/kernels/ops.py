@@ -12,6 +12,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.rs import torch_rs as _torch_rs
 from repro_torch.core.rs.codec import DEFAULT_CODE, RSCode
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_extractor as _fx
@@ -73,15 +74,18 @@ def fused_extractor(tiles: torch.Tensor, packed: dict, schedule=None,
 
 def rs_decode(bits: torch.Tensor, *, code: RSCode = DEFAULT_CODE
               ) -> Dict[str, torch.Tensor]:
-    """Batched t = 1 decode of integer (or bool) bits (B, 60) for the
-    default RS(15,12) GF(16) code, equal to the reference's
-    Berlekamp-Welch kernel on every input: bits are cast to int32 as the
-    reference casts them, and entries outside {0, 1} decode as there
-    (the CUDA kernel's closed form covers words in {0, 1}, the
-    reference's algorithm the rest, in one launch)."""
-    _rs.check_code(code)
-    fn = (_rs.rs_decode_plain if _on_cpu(bits, "rs_decode")
-          else _rs.rs_decode_cuda)
+    """Batched decode of integer (or bool) bits (B, n*m), equal to the
+    reference's on every input: bits are cast to int32 as the reference
+    casts them, and entries outside {0, 1} decode as there.  The default
+    RS(15,12) GF(16) code takes the t = 1 kernel (the CUDA kernel's
+    closed form covers words in {0, 1}, the reference's algorithm the
+    rest, in one launch); any other code the batched Berlekamp-Welch
+    ``torch_rs`` in torch ops on the bits' device, as the reference
+    falls back to ``jax_rs``."""
+    cpu = _on_cpu(bits, "rs_decode")
+    if not _rs.is_kernel_code(code):
+        return _torch_rs.make_batch_decoder(code)(bits)
+    fn = _rs.rs_decode_plain if cpu else _rs.rs_decode_cuda
     return fn(bits)
 
 

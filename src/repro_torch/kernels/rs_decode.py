@@ -22,8 +22,9 @@ codeword_bits (B, 60) int32, ok (B,) bool, n_corrected (B,) int32);
 on failure the codeword is the received word and n_corrected is -1.
 The outputs are integers and equal the reference's exactly on every
 input, tie-breaks, degenerate words and entries outside {0, 1}
-included.  Only the default code is ported; other codes go to the
-batched ``jax_rs`` counterpart (ROADMAP queue 1 item 8).
+included.  Both are specialised to the default code; ``ops.rs_decode``
+sends every other code to ``core.rs.torch_rs``, as the reference sends
+it to ``jax_rs``.
 """
 from __future__ import annotations
 
@@ -44,12 +45,11 @@ NN = T + K        # deg(Nu) <= t+k-1 -> 13 coefficients
 COLS = NQ + NN    # 15 unknowns: [q_0, q_1, nu_0 .. nu_12]
 
 
-def check_code(code: RSCode):
-    if (code.m, code.n, code.k) != (M, N, K):
-        raise NotImplementedError(
-            f"RS code (m={code.m}, n={code.n}, k={code.k}): only the "
-            f"default (4, 15, 12) code is ported; other codes need the "
-            f"batched jax_rs counterpart (ROADMAP queue 1 item 8)")
+def is_kernel_code(code: RSCode) -> bool:
+    """True for the code the kernel and its plain version are
+    specialised for, RS(15,12) over GF(16); any other code decodes
+    through the batched ``torch_rs``."""
+    return (code.m, code.n, code.k) == (M, N, K)
 
 
 def _wrap32(a: torch.Tensor) -> torch.Tensor:

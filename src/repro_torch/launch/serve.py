@@ -18,20 +18,24 @@ then tile selection), ``--unfused-decode`` (the plain extractor graph),
 rung), ``--schedule`` (``flat`` | ``auto`` | ``bb<N>-ct<N>[-db]``), and
 ``--autotune`` (sweep the blocked schedules at that dtype into the cache
 at ``--autotune-cache`` before building the pipeline, then serve with
-``auto``, which reads that dtype's entry).
+``auto``, which reads that dtype's entry), ``--escalate-tiles`` (the
+tile budget of an image: k > 1 decodes images whose RS failed again on
+up to k - 1 more tiles, summing their soft bits) and
+``--escalate-margin`` (also escalate images whose mean |logit| is below
+it).
 
 Runs on the card by default; ``--device cpu`` runs the plain versions.
 Flags of the reference launcher that need the lane executor,
-allocator, scheduler, online server, fleet, sharding, escalation or the
-serving cache are rejected by argparse as unrecognized, never
-ignored.  Prints a ``ServiceReport``-shaped JSON
-object (``allocation`` and ``lanes`` null: no lane allocation runs
-here).
+allocator, scheduler, online server, fleet, sharding or the serving
+cache are rejected by argparse as unrecognized, never ignored.  Prints
+a ``ServiceReport``-shaped JSON object (``allocation`` and ``lanes``
+null: no lane allocation runs here).
 
     python -m repro_torch.launch.serve --batches 3 --batch 32 \
         --img 256 --tile 64 [--mode M] [--rs-mode R] [--staged-ingest] \
         [--unfused-decode] [--decode-dtype fp32|bf16|int8] [--schedule S] \
-        [--autotune] [--autotune-cache PATH] [--ragged] [--device cuda|cpu]
+        [--autotune] [--autotune-cache PATH] [--escalate-tiles K] \
+        [--escalate-margin X] [--ragged] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -72,9 +76,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         description="Offline batch detection service on the PyTorch port",
         epilog="Flags of the reference launcher that need the lane "
                "executor, allocator, scheduler, online server, fleet, "
-               "sharding, escalation or the serving cache are not ported "
-               "yet (ROADMAP.md queue 1 items 9, 11-13) and are rejected "
-               "as unrecognized.",
+               "sharding or the serving cache are not ported yet "
+               "(ROADMAP.md queue 1 items 11-13) and are rejected as "
+               "unrecognized.",
         allow_abbrev=False)
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--batch", type=int, default=32)
@@ -109,6 +113,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "(implies --schedule auto)")
     ap.add_argument("--autotune-cache", default=DEFAULT_AUTOTUNE_CACHE,
                     help="schedule-cache JSON path")
+    ap.add_argument("--escalate-tiles", type=int, default=1,
+                    help="adaptive escalation tile budget per image "
+                         "(1 = single-tile fast path only; k > 1 "
+                         "re-decodes RS failures on up to k-1 extra "
+                         "tiles, accumulating soft bits)")
+    ap.add_argument("--escalate-margin", type=float, default=0.0,
+                    help="also escalate images whose mean |logit| is "
+                         "below this margin even when RS succeeded "
+                         "(0 = RS-failure trigger only; requires "
+                         "--escalate-tiles > 1)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     return ap.parse_args(argv)
@@ -150,7 +164,9 @@ def build_pipeline(args) -> DetectionPipeline:
                           fused_decode=not args.unfused_decode,
                           decode_dtype=args.decode_dtype,
                           decode_schedule=schedule,
-                          autotune_cache=args.autotune_cache)
+                          autotune_cache=args.autotune_cache,
+                          escalate_tiles=args.escalate_tiles,
+                          escalate_margin=args.escalate_margin)
     return DetectionPipeline(cfg, params, device=args.device)
 
 

@@ -131,14 +131,23 @@ _CODE11 = codec.RSCode(m=4, n=15, k=11)
 # The case ids stay fixed from slice to slice: a case whose configuration
 # has been ported is pointed at one that still is not, under its old id.
 @pytest.mark.parametrize("knob,item", [
-    (dict(mode="tiled", code=_CODE11), "item 8"),
-    (dict(mode="sequential", code=_CODE11), "item 8"),
-    (dict(tile_first=False, code=_CODE11), "item 8"),
-    (dict(fused_decode=False, code=_CODE11), "item 8"),
-    (dict(code=_CODE11), "item 8"),
-    (dict(escalate_tiles=2), "item 9"),
+    pytest.param(dict(mode="tiled", code=_CODE11, cache_exact=True),
+                 "item 13", id="knob0-item 8"),
+    pytest.param(dict(mode="sequential", code=_CODE11,
+                      cache_embedding_threshold=0.5), "item 13",
+                 id="knob1-item 8"),
+    pytest.param(dict(tile_first=False, code=_CODE11, cache_exact=True),
+                 "item 13", id="knob2-item 8"),
+    pytest.param(dict(fused_decode=False, code=_CODE11,
+                      cache_embedding_threshold=0.9), "item 13",
+                 id="knob3-item 8"),
+    pytest.param(dict(code=_CODE11, cache_exact=True), "item 13",
+                 id="knob4-item 8"),
+    pytest.param(dict(escalate_tiles=2, cache_exact=True), "item 13",
+                 id="knob5-item 9"),
     pytest.param(dict(decode_dtype="bf16", escalate_tiles=3,
-                      escalate_margin=0.5), "item 9", id="knob6-item 10"),
+                      escalate_margin=0.5, cache_embedding_threshold=0.9),
+                 "item 13", id="knob6-item 10"),
     pytest.param(dict(decode_dtype="int8", decode_schedule="auto",
                       cache_embedding_threshold=0.9), "item 13",
                  id="knob7-item 10"),

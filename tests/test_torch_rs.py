@@ -123,9 +123,22 @@ def test_row_independent_of_batch(words_and_ref):
 
 
 def test_other_code_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ops.rs_decode(torch.zeros((1, 60), dtype=torch.int32),
-                      code=codec.RSCode(m=4, n=15, k=11))
+    """(Named when other codes raised.)  ``ops.rs_decode`` at the
+    (4, 15, 11) code equals the reference's ``jax_rs`` on all four
+    outputs."""
+    from repro.core.rs import jax_rs
+    code = codec.RSCode(m=4, n=15, k=11)
+    words = np.random.default_rng(11).integers(0, 2, (24, 60)).astype(
+        np.int32)
+    words[:8] = np.stack([codec.rs_encode(code, m) for m in np.random.
+                          default_rng(12).integers(0, 2, (8, 44))])
+    words[4:8, 3] ^= 1
+    got = ops.rs_decode(torch.as_tensor(words), code=code)
+    want = jax_rs.make_batch_decoder(jcodec.RSCode(m=4, n=15, k=11))(
+        jnp.asarray(words))
+    assert np.asarray(want["ok"])[:8].all()
+    for k in ("message_bits", "codeword_bits", "ok", "n_corrected"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
 # -- a numpy model of the CUDA kernel's arithmetic ---------------------------

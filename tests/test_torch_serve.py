@@ -49,9 +49,11 @@ def test_ragged_batches():
     assert [r["ok"].shape[0] for r in results] == sizes
 
 
+# The case ids stay fixed from slice to slice: a flag that has been
+# ported is replaced by one that still is not, in its place.
 @pytest.mark.parametrize("flags", [
     ["--lanes", "2"], ["--sharded"], ["--online"], ["--fleet"],
-    ["--escalate-margin=0.5"], ["--escalate-tiles", "2"], ["--cache-exact"]])
+    ["--qps=5"], ["--realloc-every", "2"], ["--cache-exact"]])
 def test_unported_flags_are_rejected(capsys, flags):
     with pytest.raises(SystemExit) as exc:
         serve.parse_args([*flags, *SMALL])
@@ -74,7 +76,11 @@ def test_unported_flags_are_rejected(capsys, flags):
      dict(decode_schedule="bb4-ct8-db", autotune_cache="x.json")),
     (["--decode-dtype", "bf16"], dict(decode_dtype="bf16")),
     (["--decode-dtype", "int8", "--schedule", "bb2-ct16-db"],
-     dict(decode_dtype="int8", decode_schedule="bb2-ct16-db"))])
+     dict(decode_dtype="int8", decode_schedule="bb2-ct16-db")),
+    (["--escalate-tiles", "3", "--escalate-margin", "0.5"],
+     dict(escalate_tiles=3, escalate_margin=0.5)),
+    (["--mode", "tiled", "--decode-dtype", "int8", "--escalate-tiles", "2"],
+     dict(mode="tiled", escalate_tiles=2))])
 def test_configuration_flags(flags, want):
     """The reference launcher's configuration flags, with its meanings;
     the pipeline is built (its decode weights packed at the dtype) and
@@ -132,3 +138,23 @@ def test_int8_autotune_serves_auto_from_its_own_entry(tmp_path, capsys):
     assert sorted(entries) == [other, "cpu|int8|t16|c64|d7|n60"]
     assert entries[other] == {"schedule": "bb4-ct0"}
     assert json.loads(out.out[out.out.index("{\n"):])["images"] == 2
+
+
+def test_escalation_runs(capsys):
+    """--escalate-tiles 3 on the launcher's untrained weights: nearly
+    every image fails RS(15,12) and uses all three tiles; the report keeps
+    its shape, and the results equal the pipeline's own escalation."""
+    args = serve.parse_args(["--batches", "1", "--batch", "3",
+                             "--escalate-tiles", "3", *SMALL])
+    pipe = serve.build_pipeline(args)
+    _, batches = serve.make_batches(args)
+    rep, results = serve.serve(pipe, batches)
+    assert rep.images == 3
+    used = results[0]["tiles_used"]
+    assert used.shape == (3,) and ((1 <= used) & (used <= 3)).all()
+    assert (used[~results[0]["ok"]] == 3).all()
+    serve.main(["--batches", "1", "--batch", "2", "--escalate-tiles", "3",
+                *SMALL])
+    rep = json.loads(capsys.readouterr().out)
+    assert set(rep) == {"images", "wall_s", "throughput_ips", "allocation",
+                        "lanes", "lane_loads", "straggler_retries", "device"}
