@@ -86,10 +86,24 @@ In order, it
    (8, 32, 24) and against the RS kernel at (4, 15, 12), with call ms at
    B = 32 and 65,536, and each ``ATTACKS`` entry on the card against the
    CPU;
-7. checks the default and the staged path, and the bf16 and int8 rungs,
+7. drives the lane executor at full width (``phase_lanes``): on a
+   12-batch stream, serial ``detect_batch`` against ``run_stream`` at
+   one lane a stage, the default lanes and Algorithm 1's, and against
+   the executor's service mode, by result hash, at fp32 and int8, with
+   escalation (k = 3 on the escalation workload) and with ``cpu_pool``;
+   launches equal to serial's; a profiled pass of the serial loop, the
+   lanes and the scheduled service (device busy as the union of the
+   trace's device intervals, idle share, H2D, the CUDA streams the
+   decode kernels ran on — more than one with 4 decode lanes — and
+   whether two overlapped); Algorithm 1's profiles and allocation;
+   images/s in alternating windows; the raw batch's pageable and pinned
+   upload; host µs a batch by part; keys and offsets with 1, 2 and 4
+   threads at once; ``run_batch`` == ``detect_batch``; the launcher's
+   ``main`` adaptive, ``--lanes 4`` and ``--sharded``;
+8. checks the default and the staged path, and the bf16 and int8 rungs,
    against the JAX package's golden outputs
    (``tests/data/torch_port_golden.npz``);
-8. prints one ``{"kernels": [...]}`` line and, last, the status line.
+9. prints one ``{"kernels": [...]}`` line and, last, the status line.
 
 Every failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available or when
@@ -1995,6 +2009,469 @@ def phase_escalation(dev, rng, card: str, batches) -> dict:
     return out
 
 
+# -- phase 7: the lane executor (lanes as CUDA streams) --------------------
+LANE_ARGS = ["--batch", "32", "--img", "256", "--tile", "64"]
+LANE_BATCHES = 12        # the stream each lane map runs
+
+
+def result_hash(results) -> str:
+    """sha256 of a list of result dicts (every field's dtype, shape and
+    bytes, fields in name order): equal hashes are equal results."""
+    import hashlib
+    h = hashlib.sha256()
+    for r in results:
+        for k in sorted(r):
+            a = np.ascontiguousarray(r[k])
+            h.update(f"{k}|{a.dtype}|{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def lane_service(flags, dev: str = "cuda"):
+    """The launcher's full-width DetectionService for ``flags`` (lanes
+    adaptive: Algorithm 1 assigns them at the warm-up)."""
+    from repro_torch.launch import serve as serve_lib
+    args = serve_lib.parse_args([*LANE_ARGS, "--device", dev, *flags])
+    cfg, params = serve_lib.build_config(args)
+    return serve_lib.DetectionService(cfg, params, device=dev)
+
+
+def serial_results(pipe, stream) -> list:
+    """``detect_batch`` over the stream, item i under batch key i."""
+    return [pipe.detect_batch(raw, key=pipe.stages.batch_key(i))
+            for i, raw in enumerate(stream)]
+
+
+def hold_lanes(svc, stream, label: str) -> dict:
+    """Serial ``detect_batch`` against ``run_stream`` at every lane map
+    and the executor's service mode over the same stream (item i under
+    batch key i): every result hash equal to serial's."""
+    from repro_torch.core.lanes import LaneExecutor
+    pipe = svc.pipe
+    want = result_hash(serial_results(pipe, stream))
+    out = {"serial": want, "lanes": {}}
+    maps = {"1": 1, "default": None, "assign": dict(svc.lanes)}
+    for name, lanes in maps.items():
+        pipe._seq = 0
+        got = pipe.run_stream(stream, lanes=lanes)
+        h = result_hash(got["results"])
+        check(h == want, f"lanes {label}: run_stream at {name} "
+              f"{got['lanes']} hashes {h}, serial {want}")
+        out["lanes"][name] = got["lanes"]
+    # the service mode: tickets resolve in completion order
+    st = pipe.stages
+    st.prepare(stream[0].shape)
+    ex = LaneExecutor(pipe.build_stages(), name="service").start()
+    order = []
+    try:
+        tickets = [ex.submit({"raw": raw, "keys": st.image_keys(
+            st.batch_key(i), raw.shape[0])},
+            callback=lambda t: order.append(t.seq))
+            for i, raw in enumerate(stream)]
+        check(ex.drain(300), f"lanes {label}: the service did not drain")
+        h = result_hash([t.result(0) for t in tickets])
+    finally:
+        ex.close()
+    check(h == want, f"lanes {label}: the service mode hashes {h}, "
+          f"serial {want}")
+    out["service_completion_order"] = order
+    print(f"lanes {label}: {len(stream)} batches, serial == run_stream at "
+          f"{json.dumps(out['lanes'])} == the service mode (completion "
+          f"order {order}), hash {want}")
+    return out
+
+
+def lane_stream_trace(fn, name: str):
+    """Run ``fn`` once under ``torch.profiler``; return (the trace's
+    device events — kernels, copies, sets — as (name, ts, dur, stream)
+    in µs, the wall ms, the profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):  # the primer of profile_path
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = OUT / f"{name}_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)),
+               e.get("args", {}).get("stream"))
+              for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "spin_kernel" not in e["name"]]
+    return events, wall_ms
+
+
+def busy_union_ms(events) -> float:
+    """Device busy time: the union of the events' intervals (streams
+    that overlap count once), ms."""
+    spans = sorted((ts, ts + dur) for _, ts, dur, _ in events)
+    total, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        total += cur[1] - cur[0]
+    return total / 1e3
+
+
+def lane_profile(fn, name: str, n_batches: int, card: str) -> dict:
+    """A profiled pass of ``fn``: wall, device busy (union) and the sum
+    of device time, idle share, H2D time, the CUDA streams that ran
+    decode kernels and whether two decode kernels overlapped."""
+    from repro_torch.kernels.fused_extractor import is_decode_kernel
+    events, wall_ms = lane_stream_trace(fn, name)
+    if not events:
+        print(f"lanes profile {name}: the profiler saw no device time "
+              f"(not measured)")
+        return {"measured": False}
+    dec = sorted((e for e in events if is_decode_kernel(e[0])),
+                 key=lambda e: e[1])
+    streams = sorted({e[3] for e in dec})
+    overlap = any(a[3] != b[3] and b[1] < a[1] + a[2]
+                  for i, a in enumerate(dec) for b in dec[i + 1:])
+    busy = busy_union_ms(events)
+    h2d = sum(d for n, _, d, _ in events if "HtoD" in n) / 1e3
+    out = dict(measured=True, wall_ms=wall_ms, busy_ms=busy,
+               device_ms=sum(d for _, _, d, _ in events) / 1e3,
+               idle_share=1 - busy / wall_ms, h2d_ms=h2d,
+               busy_ms_a_batch=busy / n_batches,
+               decode_streams=len(streams), decode_overlap=overlap,
+               decode_launches=len(dec))
+    print(f"lanes profile {name}: {n_batches} batches, wall {wall_ms:.3f} "
+          f"ms, device busy {busy:.3f} ms ({busy / n_batches:.3f} a batch; "
+          f"device time summed {out['device_ms']:.3f}), idle share "
+          f"<= {out['idle_share']:.3f}, H2D {h2d:.3f} ms, decode kernels "
+          f"on {len(streams)} stream(s), overlapping: {overlap}, on {card}")
+    return out
+
+
+def lane_windows(svc, stream, card: str, rounds: int = 2) -> dict:
+    """Images/s of the serial loop, run_stream at one lane a stage and at
+    the default lanes on whole batches, and the service's scheduled
+    stream (LPT tasks of b // 4, padded), in one process, windows
+    alternating serial, lanes1, lanes, service, service, lanes, lanes1,
+    serial."""
+    pipe = svc.pipe
+    n_img = sum(r.shape[0] for r in stream)
+
+    def serial():
+        for raw in stream:
+            pipe.detect_batch(raw)
+
+    def lanes1():
+        pipe.run_stream(stream, lanes=1)
+
+    def lanes():
+        pipe.run_stream(stream)
+
+    def service():
+        svc.serve(stream)
+
+    runs = {"serial": serial, "lanes1": lanes1, "lanes": lanes,
+            "service": service}
+    ips = {k: [] for k in runs}
+    for _ in range(rounds):
+        for name in ("serial", "lanes1", "lanes", "service", "service",
+                     "lanes", "lanes1", "serial"):
+            t0 = time.perf_counter()
+            runs[name]()
+            ips[name].append(n_img / (time.perf_counter() - t0))
+    shown = {k: [round(v, 1) for v in vs] for k, vs in ips.items()}
+    print(f"lanes images/s ({len(stream)} batches of 32 a window): "
+          f"{json.dumps(shown)} on {card}")
+    return ips
+
+
+def upload_ms(raw, card: str, dev: str = "cuda", iters: int = 20) -> dict:
+    """Host ms to put the 8 MB raw batch on the card and wait for it:
+    pageable (``torch.as_tensor(raw).to``) against pinned staging and a
+    non-blocking copy (``lanes.upload``), alternating, medians."""
+    import torch
+    from repro_torch.core.lanes import upload
+    dev = torch.device(dev)
+    times = {"pageable": [], "pinned": []}
+    fns = {"pageable": lambda: torch.as_tensor(raw).to(dev),
+           "pinned": lambda: upload(raw, dev)}
+    for _ in range(3):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    for _ in range(iters):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    out = {k: statistics.median(v) for k, v in times.items()}
+    print(f"upload of the {raw.nbytes / 2**20:.1f} MiB raw batch: pageable "
+          f"{out['pageable']:.4f} ms, pinned {out['pinned']:.4f} ms "
+          f"(host clock to the wait, median of {iters}) on {card}")
+    return out
+
+
+def host_contention(card: str, n: int = 24) -> dict:
+    """Host ms a batch of the keys and tile offsets of a batch of 32 (a
+    few hundred small torch ops, each releasing and retaking the GIL),
+    computed by 1, 2 and 4 threads at once: total wall over total
+    batches, so 1.0x the one-thread time means the threads cost nothing
+    extra."""
+    import threading
+    import torch
+    from repro_torch.core import prng, tiling
+    base = prng.key(0)
+
+    def work():
+        for i in range(n):
+            keys = prng.fold_in(prng.fold_in(base, i)[None].expand(32, 2),
+                                torch.arange(32))
+            tiling.tile_first_offsets("random_grid", keys, img_size=256,
+                                      tile=64)
+
+    work()
+    out = {}
+    for nt in (1, 2, 4, 1):
+        threads = [threading.Thread(target=work) for _ in range(nt)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out.setdefault(str(nt), []).append(
+            (time.perf_counter() - t0) * 1e3 / (n * nt))
+    shown = {k: [round(x, 4) for x in v] for k, v in out.items()}
+    print(f"host ms a batch of keys + offsets with 1, 2, 4 threads at once "
+          f"(wall / batches): {json.dumps(shown)} on the host of {card}")
+    return out
+
+
+def host_parts(pipe, stream, card: str) -> dict:
+    """Host µs a batch of the serial default path by part (median over
+    the stream): keys, offsets, the raw batch's pageable upload, the
+    offsets' upload, the ingest, decode and bits + RS wrapper calls, the
+    wait for the device, and the D2H of ``_finish`` after it; held to
+    ``detect_batch`` (same hash)."""
+    import torch
+    from repro_torch.core import tiling
+    from repro_torch.kernels import ops as kops
+    st, cfg = pipe.stages, pipe.cfg
+    parts = ("keys", "offsets", "upload", "offsets_h2d", "ingest_call",
+             "decode_call", "rs_call", "device_wait", "finish_d2h")
+    times = {k: [] for k in parts}
+    results = []
+    torch.cuda.synchronize()
+    for i, batch in enumerate(stream):
+        t = [time.perf_counter()]
+        keys = st.image_keys(st.batch_key(i), batch.shape[0])
+        t.append(time.perf_counter())
+        offs = tiling.tile_first_offsets(cfg.strategy, keys,
+                                         img_size=cfg.img_size,
+                                         tile=cfg.tile)
+        t.append(time.perf_counter())
+        raw = st.to_device(batch)
+        t.append(time.perf_counter())
+        offs_d = offs.to(raw.device).contiguous()
+        t.append(time.perf_counter())
+        x = kops.fused_tile_preprocess(raw, offs_d, resize=cfg.resize_src,
+                                       crop=cfg.img_size, tile=cfg.tile)
+        t.append(time.perf_counter())
+        logits = st.extract(x)
+        t.append(time.perf_counter())
+        rs = st._device_rs(st.bits(logits))
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        results.append(pipe._finish(rs["message_bits"], rs["ok"],
+                                    rs["n_corrected"], logits))
+        t.append(time.perf_counter())
+        for k, a, b in zip(parts, t, t[1:]):
+            times[k].append((b - a) * 1e6)
+    want = result_hash(serial_results(pipe, stream))
+    check(result_hash(results) == want,
+          "host parts: the timed replica differs from detect_batch")
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out["total"] = sum(out.values())
+    shown = {k: round(v, 1) for k, v in out.items()}
+    print(f"host µs a batch by part (serial default path, median of "
+          f"{len(stream)}): {json.dumps(shown)} on {card}")
+    return out
+
+
+def lane_launcher(card: str, dev: str = "cuda") -> dict:
+    """``python -m repro_torch.launch.serve`` at full width, adaptive,
+    ``--lanes 4`` and ``--sharded``, through its ``main`` in this
+    process: each prints the allocation line and a report with
+    ``allocation``, ``lanes`` and ``lane_loads``."""
+    from repro_torch.launch import serve as serve_lib
+    out = {}
+    for name, flags in (("adaptive", []), ("lanes4", ["--lanes", "4"]),
+                        ("sharded", ["--sharded"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_lib.main([*LANE_ARGS, "--batches", "4", "--device", dev,
+                            *flags])
+        text = buf.getvalue()
+        line, _, rest = text.partition("\n")
+        check(line.startswith("allocation: streams="),
+              f"serve {name}: no allocation line: {text[:200]}")
+        rep = json.loads(rest)
+        check({"allocation", "lanes", "lane_loads"} <= set(rep) and
+              rep["images"] == 4 * int(LANE_ARGS[1]),
+              f"serve {name}: report {rep}")
+        if name == "lanes4":
+            check(rep["lanes"] == {"ingest": 1, "decode": 4, "rs": 4},
+                  f"serve --lanes 4: lanes {rep['lanes']}")
+        out[name] = dict(line=line, **rep)
+        print(f"serve {' '.join(flags) or '(adaptive)'}: {line}; "
+              f"{rep['images']} images, {rep['throughput_ips']:.1f} "
+              f"images/s, lanes {rep['lanes']}, lane_loads "
+              f"{rep['lane_loads']} on {card}")
+    return out
+
+
+def lane_escalation(card: str, dev: str = "cuda", geo=FULL, width=WIDTH,
+                    raw_hw: int = RAW, b: int = 32) -> dict:
+    """escalate_tiles=3 on the escalation phase's workload through the
+    lanes: each stream item's round-1 tiles (under batch key i) noised
+    in the phase's 11 rows, so the rs lanes escalate them."""
+    from repro_torch.core import tiling
+    from repro_torch.core.detect import DetectionConfig, DetectionPipeline
+    p, msg, clean_f = esc_workload(geo, width, raw_hw, b)
+    pipe = DetectionPipeline(DetectionConfig(**geo, escalate_tiles=ESC_K),
+                             p, ground_truth_bits=msg, device=dev)
+    st, o = pipe.stages, (raw_hw - geo["img_size"]) // 2
+    damaged = [i for i in ESC_DAMAGED if i < b]
+    stream = []
+    for i in range(4):
+        offs = tiling.tile_first_offsets(
+            "random_grid", st.image_keys(st.batch_key(i), b),
+            img_size=geo["img_size"], tile=geo["tile"]).numpy()
+        stream.append(esc_damage(clean_f, offs + o, damaged, geo["tile"],
+                                 sigma=ESC_SIGMA))
+    want_res = serial_results(pipe, stream)
+    want = result_hash(want_res)
+    used = np.stack([r["tiles_used"] for r in want_res])
+    check((used[:, damaged] > 1).mean() >= 0.8 and
+          np.stack([r["match"] for r in want_res]).mean() >= 0.8,
+          f"lanes escalation: the damaged rows did not escalate and "
+          f"recover: tiles_used {used.tolist()}")
+    maps = {"1": 1, "default": None, "dict": {"ingest": 2, "decode": 3,
+                                              "rs": 3}}
+    for name, lanes in maps.items():
+        pipe._seq = 0
+        h = result_hash(pipe.run_stream(stream, lanes=lanes)["results"])
+        check(h == want, f"lanes escalation: run_stream at {name} hashes "
+              f"{h}, serial {want}")
+    print(f"lanes escalation (k = {ESC_K}, 4 damaged batches): serial == "
+          f"run_stream at {list(maps)}, hash {want}, tiles_used a batch "
+          f"{used.sum(axis=1).tolist()} on {card}")
+    return dict(hash=want, tiles_used=used.sum(axis=1).tolist())
+
+
+def lane_run_batch(svc, raw, card: str) -> dict:
+    """``run_batch`` over the visible cards on a ragged batch (29 rows)
+    equal to ``detect_batch`` with the same key."""
+    from repro_torch.core import prng
+    from repro_torch.launch.mesh import make_detection_mesh
+    mesh = make_detection_mesh()
+    key = prng.key(11)
+    got = svc.pipe.run_batch(raw[:29], mesh=mesh, key=key)
+    want = svc.pipe.detect_batch(raw[:29], key=key)
+    check(result_hash([got]) == result_hash([want]),
+          "run_batch differs from detect_batch")
+    print(f"run_batch over {[str(d) for d in mesh]} == detect_batch on a "
+          f"ragged batch of 29, on {card}")
+    return dict(devices=[str(d) for d in mesh], equal=True)
+
+
+def phase_lanes(batches, card: str, dev: str = "cuda") -> dict:
+    """The lane executor at full width on the card (C 64, D 7, 60 bits,
+    tile 64, img 256, raw 288, batch 32): results equal to serial at
+    every lane map, rung, with escalation and cpu_pool; decode kernels
+    on more than one stream; launches equal to serial's; Algorithm 1's
+    profiles and allocation; images/s, device busy and idle share of the
+    serial loop, the lanes and the scheduled service; upload and host
+    time by part; the launcher adaptive, --lanes 4 and --sharded;
+    run_batch == detect_batch."""
+    import torch
+    from repro_torch.kernels import ops
+    stream = (list(batches) * LANE_BATCHES)[:LANE_BATCHES]
+    out = {"rungs": {}}
+    svcs = {}
+    for dtype in ("fp32", "int8"):
+        svc = lane_service(["--decode-dtype", dtype], dev)
+        alloc = svc.warmup(stream[0])
+        prof = [dict(name=p.name, t_per_sample=p.t_per_sample,
+                     u_per_sample=p.u_per_sample,
+                     launch_overhead=p.launch_overhead)
+                for p in svc.profiles]
+        print(f"lanes Algorithm 1 ({dtype}): profiles {json.dumps(prof)}; "
+              f"streams {alloc.streams} J* {alloc.bottleneck_s:.6f} s; "
+              f"minibatch {alloc.minibatch}; assign {svc.lanes} on {card}")
+        out["rungs"][dtype] = dict(
+            profiles=prof, streams=alloc.streams, minibatch=alloc.minibatch,
+            j_star=alloc.bottleneck_s, assign=dict(svc.lanes),
+            **hold_lanes(svc, stream, dtype))
+        svcs[dtype] = svc
+    svc = svcs["fp32"]
+    pipe = svc.pipe
+
+    # launches: run_stream's equal serial's, per wrapper and per kernel
+    counts = {}
+    for name, fn in (("serial", lambda: serial_results(pipe, stream)),
+                     ("lanes", lambda: pipe.run_stream(stream))):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        pipe._seq = 0
+        fn()
+        torch.cuda.synchronize()
+        counts[name] = (ops.launch_counts(), ops.kernel_launch_counts())
+    check(counts["serial"] == counts["lanes"],
+          f"lanes: launches {counts['lanes']} differ from serial's "
+          f"{counts['serial']}")
+    out["launches"] = counts["lanes"][0]
+    print(f"lanes launches (== serial's, {LANE_BATCHES} batches): "
+          f"{json.dumps(counts['lanes'][0])}")
+
+    # streams are real, and each path's device busy / idle / H2D
+    n = LANE_BATCHES
+    out["profiles"] = {
+        "serial": lane_profile(lambda: serial_results(pipe, stream),
+                               "lanes_serial", n, card),
+        "lanes": lane_profile(lambda: pipe.run_stream(stream),
+                              "lanes_default", n, card),
+        "service": lane_profile(lambda: svc.serve(stream),
+                                "lanes_service", n, card)}
+    lp = out["profiles"]["lanes"]
+    check(lp["measured"] and lp["decode_streams"] > 1,
+          f"lanes: the decode kernels ran on {lp.get('decode_streams')} "
+          f"stream(s) with {pipe.default_lanes()['decode']} decode lanes")
+
+    out["images_per_s"] = lane_windows(svc, stream * 3, card)
+    out["upload_ms"] = upload_ms(stream[0], card, dev)
+    out["host_us"] = host_parts(pipe, stream, card)
+    out["host_contention_ms"] = host_contention(card)
+    out["escalation"] = lane_escalation(card, dev)
+    pool = lane_service(["--rs-mode", "cpu_pool"], dev)
+    pool.warmup(stream[0])
+    out["cpu_pool"] = hold_lanes(pool, stream[:4], "cpu_pool")
+    pool.close()
+    out["run_batch"] = lane_run_batch(svc, stream[0], card)
+    for s in svcs.values():
+        s.close()
+    out["launcher"] = lane_launcher(card, dev)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2073,6 +2550,9 @@ def main() -> int:
           f" ms of device time a launch in the staged path's profiled pass, "
           f"on {card}")
     escalation = phase_escalation(dev, rng, card, batches)
+    t_lanes = time.perf_counter()
+    lanes = phase_lanes(batches, card)
+    print(f"lanes phase: {time.perf_counter() - t_lanes:.1f} s")
     phase_golden()
     phases["rs_decode"]["device_ms"] = rs_device_ms(dev, rng, card)
 
@@ -2177,7 +2657,7 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phases": phases,
          "rungs": rungs, "window_ips": window_ips, "configs": configs,
-         "escalation": escalation},
+         "escalation": escalation, "lanes": lanes},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -85,7 +85,8 @@ class _Field:
 
 
 @functools.lru_cache(maxsize=16)
-def _field(code: RSCode, device: torch.device) -> _Field:
+def field(code: RSCode, device: torch.device) -> _Field:
+    """The code's tables on ``device``, made once."""
     return _Field(code, device)
 
 
@@ -184,7 +185,7 @@ def make_decoder(code: RSCode) -> Callable[[torch.Tensor],
     nq = t + 1
 
     def decode(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
-        f = _field(code, bits.device)
+        f = field(code, bits.device)
         R = bits_to_symbols(bits, m)                            # (B, n)
         B = R.shape[0]
         A = torch.cat([f.mul(R[:, :, None], f.powsQ[None]),
@@ -220,7 +221,7 @@ def make_encoder(code: RSCode) -> Callable[[torch.Tensor], torch.Tensor]:
     k, m = code.k, code.m
 
     def encode(message_bits: torch.Tensor) -> torch.Tensor:
-        f = _field(code, message_bits.device)
+        f = field(code, message_bits.device)
         M = bits_to_symbols(message_bits, m)                    # (B, k)
         xs_k = f.xs[:k].expand(M.shape[0], k)
         cw = _lagrange_eval(f, xs_k, M, f.xs)

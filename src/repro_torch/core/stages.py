@@ -27,30 +27,43 @@ params, device):
    (``tiling.escalation_offsets``) in round r, their soft bits summed,
    and RS run again on the sums (:meth:`StageRegistry.escalate`).
 
+The same functions make the payload stage graph of the lane executor
+(:meth:`StageRegistry.build_stages`, ``ingest`` -> ``decode`` -> ``rs``,
+:data:`STAGE_NAMES`), which ``DetectionPipeline.run_stream`` and the
+offline ``DetectionService`` run; on a card each lane runs its stage on
+a CUDA stream of its own (``lanes.LaneStreams``).
+
 PyTorch runs eagerly, so there is no ``jit``: :meth:`fused_keyed` (qrmark
 with device RS) is the steps in sequence.  Keys are integer hashing,
 bit-exact anywhere, and live on the host; the offsets they give are
 copied to the device with the raw batch.  The serving cache's settings
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+and the stage graph's ``emit_embed`` raise ``NotImplementedError``
+naming the ROADMAP item that brings them (13).
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import extractor as extractor_lib
+from repro_torch.core import lanes as lanes_lib
 from repro_torch.core import prng, tiling, transforms
 from repro_torch.core.rs import torch_rs
 from repro_torch.core.rs.codec import RSCode, rs_decode
 from repro_torch.core.rs.cpu_pool import RSCorrectionPool
+from repro_torch.kernels import _build
 from repro_torch.kernels import autotune as autotune_lib
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.fused_extractor import check_blocked_schedule
+from repro_torch.kernels.fused_extractor import (check_blocked_schedule,
+                                                 device_constants)
+from repro_torch.kernels.fused_preprocess import ingest_tables
 from repro_torch.kernels.rs_decode import is_kernel_code
+
+STAGE_NAMES = ("ingest", "decode", "rs")
 
 
 def make_device_rs(code: RSCode) -> Callable:
@@ -218,6 +231,35 @@ class StageRegistry:
         if raw.dtype != torch.uint8:
             raise TypeError(f"raw images must be uint8, got {raw.dtype}")
         return raw.to(self.device).contiguous()
+
+    def upload(self, raw) -> torch.Tensor:
+        """Raw uint8 batch -> the pipeline's device, once: on a card
+        through pinned host memory and a non-blocking copy on the current
+        stream (``lanes.upload``); the ingest lane's upload."""
+        raw = torch.as_tensor(raw)
+        if raw.dtype != torch.uint8:
+            raise TypeError(f"raw images must be uint8, got {raw.dtype}")
+        return lanes_lib.upload(raw, self.device)
+
+    def prepare(self, raw_shape):
+        """Build every device constant that lanes read for raw batches of
+        ``raw_shape`` (b, H, W, 3) — the kernel library, the ingest
+        tables of the geometry, the int8 weight fragments, the device RS
+        tables of another code — then wait for the device, so that no
+        lane stream reads one before it is complete (the packed weights
+        of ``__init__`` included).  On the CPU there is nothing to do."""
+        if self.device.type != "cuda":
+            return
+        cfg = self.cfg
+        _build.library()
+        if cfg.mode == "qrmark" and cfg.fused_preprocess:
+            ingest_tables(raw_shape[1], raw_shape[2], cfg.resize_src,
+                          cfg.img_size, None, None, str(self.device))
+        if self.packed_params is not None:
+            device_constants(self.packed_params)
+        if self._device_rs is not None and not is_kernel_code(cfg.code):
+            torch_rs.field(cfg.code, self.device)
+        torch.cuda.synchronize(self.device)
 
     def preprocess(self, raw: torch.Tensor) -> torch.Tensor:
         """Full-image Resize -> CenterCrop -> Normalize: the fused
@@ -429,6 +471,90 @@ class StageRegistry:
         msg[:tb], ok[:tb], ncorr[:tb] = m, o, c
         logits[:tb], tiles[:tb] = lg, tu
         return msg, ok, ncorr, logits, tiles
+
+    # -- the stage graph ---------------------------------------------
+    def build_stages(self, lanes: Dict[str, int],
+                     finish: Optional[Callable[[dict], Any]] = None,
+                     depth: int = 2,
+                     escalate_inline: bool = True,
+                     emit_embed: bool = False
+                     ) -> List[lanes_lib.Stage]:
+        """The detection stage graph: the payload contract every
+        executor-driven engine shares.
+
+        Payloads are dicts carrying ``raw`` (a uint8 batch on the host)
+        and ``keys`` (per-image fold_in keys, derived before the payload
+        enters, so stage functions are pure and any lane count or
+        arrival order equals serial execution bit for bit).  Ingest
+        uploads ``raw`` once and puts the device copy in its place, then
+        adds ``x``; decode adds ``logits``; rs adds ``msg`` / ``ok`` /
+        ``ncorr`` and returns ``finish(p)``, the sink, where one is
+        given (the one place device tensors should become numpy).  Extra
+        fields flow through untouched.  On a card each lane runs on a
+        stream of its own and a payload's tensors reach the next stage
+        through an event (``lanes.LaneStreams``); call :meth:`prepare`
+        before the first payload.
+
+        Escalation: payloads may carry ``round`` (int, default 0) and
+        ``acc_logits``.  A round-r > 0 payload ingests column r of each
+        image's escalation plan (:meth:`escalation_tiles`), decodes it
+        with :meth:`decode_tiles` and adds the soft bits to
+        ``acc_logits``.  With ``escalate_inline`` (the offline engines)
+        round-0 payloads instead run the whole adaptive loop on the rs
+        lane (:meth:`escalate_prefix`, on the first ``true_b`` rows when
+        the payload carries one), adding ``tiles_used``.
+
+        ``emit_embed`` (the near-duplicate cache's embedding) is not
+        ported: it raises ``NotImplementedError``."""
+        if emit_embed:
+            _unported("the stage graph's emit_embed (the GAP embedding "
+                      "for the near-duplicate cache)", "13")
+        streams = lanes_lib.LaneStreams(self.device)
+
+        def st_ingest(p):
+            r = p.get("round", 0)
+            raw = self.upload(p["raw"])
+            p["raw"] = raw
+            if r > 0:
+                # escalation round: ingest emits tile r of the plan
+                # directly (decode-ready), whatever the ingest mode
+                p["x"] = self.escalation_tiles(raw, p["keys"], r)
+            else:
+                p["x"] = self.ingest_keyed(raw, p["keys"])
+            return p
+
+        def st_decode(p):
+            if p.get("round", 0) > 0:
+                logits = self.decode_tiles(p["x"])
+            else:
+                logits = self.decode_keyed(p["x"], p["keys"])
+            if p.get("acc_logits") is not None:
+                logits = logits + torch.as_tensor(p["acc_logits"]).to(
+                    logits.device)
+            p["logits"] = logits
+            return p
+
+        def st_rs(p):
+            p["msg"], p["ok"], p["ncorr"] = self.rs_correct(
+                self.bits(p["logits"]))
+            if (escalate_inline and self.policy.enabled
+                    and p.get("round", 0) == 0):
+                # a padded feeder's payload carries "true_b": only the
+                # real rows escalate
+                (p["msg"], p["ok"], p["ncorr"], p["logits"],
+                 p["tiles_used"]) = self.escalate_prefix(
+                    p["raw"], p["keys"], p["msg"], p["ok"], p["ncorr"],
+                    p["logits"], p.get("true_b"))
+            return finish(p) if finish is not None else p
+
+        def stage(name, fn, **kw):
+            return lanes_lib.Stage(name, streams.wrap(fn),
+                                   lanes=max(1, lanes.get(name, 1)),
+                                   depth=depth, **kw)
+
+        return [stage("ingest", st_ingest),
+                stage("decode", st_decode, gpu_intensive=True),
+                stage("rs", st_rs)]
 
     def close(self):
         if self._rs_pool is not None:

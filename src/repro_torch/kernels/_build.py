@@ -53,7 +53,8 @@ SIGNATURES: Dict[str, List] = {
 
 # Launches per kernel wrapper: each wrapper adds one where it launches
 # its kernel, and nowhere else (a CPU tensor takes the plain version and
-# counts nothing).
+# counts nothing).  Lanes launch from several threads at once, so every
+# increment and reset holds ``count_lock`` (``count``, ``count_kernel``).
 launch_counts: Dict[str, int] = {
     "fused_tile_preprocess": 0, "fused_preprocess": 0, "fused_extractor": 0,
     "fused_extractor_blocked": 0, "rs_decode": 0}
@@ -63,10 +64,23 @@ launch_counts: Dict[str, int] = {
 # ``conv_regtile_kernel<qr::RF32,64,64>``): the per-layer launchers of
 # ``fused_extractor`` each add one where they launch their kernel.
 kernel_launches: Dict[str, int] = {}
+count_lock = threading.Lock()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
+
+
+def count(op: str):
+    """Count one launch of the kernel wrapper ``op``."""
+    with count_lock:
+        launch_counts[op] += 1
+
+
+def count_kernel(name: str):
+    """Count one launch of the decode's CUDA kernel ``name``."""
+    with count_lock:
+        kernel_launches[name] = kernel_launches.get(name, 0) + 1
 
 
 def nvcc() -> str:

@@ -46,6 +46,7 @@ vector when ``with_embed``, else ``logits`` alone.
 """
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import NamedTuple
 
@@ -124,8 +125,9 @@ def weight_fragments(w2d: torch.Tensor, cin: int) -> torch.Tensor:
 
 # weight fragments per packed int8 conv weight, made once on its device:
 # id(weight) -> (weakref to it, versions, (fragments, scales)), dropped
-# when the weight is freed
+# when the weight is freed; lanes look them up from several threads
 _FRAGMENTS: dict = {}
+_FRAGMENTS_LOCK = threading.Lock()
 
 
 def imma_fragments(blk: dict, cin: int):
@@ -133,19 +135,33 @@ def imma_fragments(blk: dict, cin: int):
     weight, its column scales zero-padded to a multiple of 8), computed
     on the weight's device at first use and cached beside the pack (keyed
     by the weight tensor; the pack itself is left as ``pack_params`` made
-    it)."""
+    it).  On a card the building stream is synchronized before they are
+    cached: lanes on other streams read them."""
     w, scale = blk["w"], blk["scale"]
     key = (w._version, scale.data_ptr(), scale._version, cin)
-    hit = _FRAGMENTS.get(id(w))
-    if hit is None or hit[0]() is not w or hit[1] != key:
-        ncol = -(-w.shape[1] // 8) * 8
-        ws = scale.new_zeros(ncol)
-        ws[:w.shape[1]] = scale
-        if hit is None or hit[0]() is not w:
-            weakref.finalize(w, _FRAGMENTS.pop, id(w), None)
-        hit = (weakref.ref(w), key, (weight_fragments(w, cin), ws))
-        _FRAGMENTS[id(w)] = hit
-    return hit[2]
+    with _FRAGMENTS_LOCK:
+        hit = _FRAGMENTS.get(id(w))
+        if hit is None or hit[0]() is not w or hit[1] != key:
+            ncol = -(-w.shape[1] // 8) * 8
+            ws = scale.new_zeros(ncol)
+            ws[:w.shape[1]] = scale
+            frags = weight_fragments(w, cin)
+            if w.is_cuda:
+                torch.cuda.current_stream(w.device).synchronize()
+            if hit is None or hit[0]() is not w:
+                weakref.finalize(w, _FRAGMENTS.pop, id(w), None)
+            hit = (weakref.ref(w), key, (frags, ws))
+            _FRAGMENTS[id(w)] = hit
+        return hit[2]
+
+
+def device_constants(packed: dict):
+    """Build what the CUDA decode caches beside a pack (the int8 rung's
+    weight fragments, every layer's), so no lane builds it."""
+    if packed_dtype(packed) != "int8":
+        return
+    for blk in packed["blocks"] + [packed["to_bits"]]:
+        imma_fragments(blk, blk["w"].shape[0] // 9)
 
 
 def fused_extractor_plain(tiles: torch.Tensor, packed: dict, *,
@@ -214,7 +230,7 @@ def _ptr(t):
 def _launched(name: str):
     """Count one launch of the CUDA kernel ``name``
     (``_build.kernel_launches``)."""
-    _build.kernel_launches[name] = _build.kernel_launches.get(name, 0) + 1
+    _build.count_kernel(name)
 
 
 def conv_kernel_name(rung: int, cin: int, cout: int,
@@ -335,7 +351,7 @@ def fused_extractor_cuda(tiles: torch.Tensor, packed: dict, *,
         return _empty(tiles, packed, with_embed)
     out = _launch_flat(_build.library(), tiles, packed, rung, with_embed,
                        _build.current_stream(tiles.device))
-    _build.launch_counts["fused_extractor"] += 1
+    _build.count("fused_extractor")
     return out
 
 
@@ -497,5 +513,5 @@ def fused_extractor_blocked_cuda(tiles: torch.Tensor, packed: dict, *,
     out = _launch_blocked(_build.library(), tiles, packed, rung, bb, ct,
                           double_buffer, with_embed,
                           _build.current_stream(tiles.device))
-    _build.launch_counts["fused_extractor_blocked"] += 1
+    _build.count("fused_extractor_blocked")
     return out

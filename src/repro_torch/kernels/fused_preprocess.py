@@ -106,9 +106,14 @@ def ingest_tables(H: int, W: int, resize: int, crop: int, mean, std,
     ``device``, made once a geometry: the six tables of ``device_tables``
     end to end, ry_idx (crop, 2) | ry_w (crop, 2) | rx_idx (crop, 2) |
     rx_w (crop, 2) | scale (3) | bias (3), the float32 ones as their
-    bits."""
-    return torch.cat([t.reshape(-1).view(torch.int32) for t in
-                      device_tables(H, W, resize, crop, mean, std, device)])
+    bits.  On a card the building stream is synchronized before the
+    buffer is returned: lanes on other streams read it."""
+    tables = torch.cat([t.reshape(-1).view(torch.int32) for t in
+                        device_tables(H, W, resize, crop, mean, std,
+                                      device)])
+    if tables.is_cuda:
+        torch.cuda.current_stream(tables.device).synchronize()
+    return tables
 
 
 def check_raw(raw: torch.Tensor, crop: int, resize: int):
@@ -149,5 +154,5 @@ def fused_preprocess_cuda(raw: torch.Tensor, *, resize: int, crop: int,
         _build.check("qr_preprocess", _build.library().qr_preprocess(
             raw.data_ptr(), tables.data_ptr(), out.data_ptr(), b, H, W, crop,
             _build.current_stream(raw.device)))
-        _build.launch_counts["fused_preprocess"] += 1
+        _build.count("fused_preprocess")
     return out

@@ -128,5 +128,5 @@ def fused_tile_preprocess_cuda(raw: torch.Tensor, offsets: torch.Tensor,
         _build.check("qr_tile_preprocess", _build.library().qr_tile_preprocess(
             raw.data_ptr(), offsets.data_ptr(), geo.tables_ptr,
             out.data_ptr(), *geo.ints, _build.current_stream(dev)))
-        _build.launch_counts["fused_tile_preprocess"] += 1
+        _build.count("fused_tile_preprocess")
     return out

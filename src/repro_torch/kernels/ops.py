@@ -91,16 +91,19 @@ def rs_decode(bits: torch.Tensor, *, code: RSCode = DEFAULT_CODE
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return dict(_build.launch_counts)
+    with _build.count_lock:
+        return dict(_build.launch_counts)
 
 
 def kernel_launch_counts() -> Dict[str, int]:
     """Launches per CUDA kernel of the decode ops since the last reset,
     by kernel name (``_build.kernel_launches``)."""
-    return dict(_build.kernel_launches)
+    with _build.count_lock:
+        return dict(_build.kernel_launches)
 
 
 def reset_launch_counts():
-    for name in _build.launch_counts:
-        _build.launch_counts[name] = 0
-    _build.kernel_launches.clear()
+    with _build.count_lock:
+        for name in _build.launch_counts:
+            _build.launch_counts[name] = 0
+        _build.kernel_launches.clear()

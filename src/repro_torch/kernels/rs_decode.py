@@ -220,6 +220,6 @@ def rs_decode_cuda(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
             bits.data_ptr(), msg.data_ptr(), cw.data_ptr(), ok.data_ptr(),
             ncorr.data_ptr(), B, _build.current_stream(bits.device))
         _build.check("qr_rs_decode", err)
-        _build.launch_counts["rs_decode"] += 1
+        _build.count("rs_decode")
     return {"message_bits": msg, "codeword_bits": cw, "ok": ok,
             "n_corrected": ncorr}

@@ -16,12 +16,24 @@ torch.set_num_threads(1)
 SMALL = ["--img", "32", "--tile", "16", "--device", "cpu"]
 
 
+def _report(out: str):
+    """The ``allocation:`` line and the ServiceReport JSON after it."""
+    line, _, rest = out.partition("\n")
+    assert line.startswith("allocation: streams=")
+    return line, json.loads(rest)
+
+
 def test_main_prints_service_report(capsys):
+    """Algorithm 1's allocation line, then the report of the scheduled
+    stream through the lane executor (adaptive lanes)."""
     serve.main(["--batches", "2", "--batch", "3", *SMALL])
-    rep = json.loads(capsys.readouterr().out)
+    line, rep = _report(capsys.readouterr().out)
     assert rep["images"] == 6 and rep["throughput_ips"] > 0
-    assert rep["allocation"] is None and rep["lanes"] is None
-    assert rep["device"] == "cpu"
+    assert len(rep["allocation"]) == 3 and "J*=" in line
+    assert set(rep["lanes"]) == {"ingest", "decode", "rs"}
+    assert f"lanes={rep['lanes']}" in line
+    assert len(rep["lane_loads"]) == sum(rep["lanes"].values())
+    assert rep["straggler_retries"] == 0 and rep["device"] == "cpu"
 
 
 def test_batches_use_the_offline_key_discipline():
@@ -52,14 +64,61 @@ def test_ragged_batches():
 # The case ids stay fixed from slice to slice: a flag that has been
 # ported is replaced by one that still is not, in its place.
 @pytest.mark.parametrize("flags", [
-    ["--lanes", "2"], ["--sharded"], ["--online"], ["--fleet"],
-    ["--qps=5"], ["--realloc-every", "2"], ["--cache-exact"]])
+    ["--cache-embed-threshold=0.5"], ["--classes=a:5"], ["--online"],
+    ["--fleet"], ["--qps=5"], ["--realloc-every", "2"], ["--cache-exact"]])
 def test_unported_flags_are_rejected(capsys, flags):
     with pytest.raises(SystemExit) as exc:
         serve.parse_args([*flags, *SMALL])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "unrecognized arguments" in err and flags[0] in err
+
+
+def test_fixed_lanes(capsys):
+    """--lanes 4: four decode and four RS lanes, bypassing Algorithm 1's
+    assignment (the allocation is still computed and reported)."""
+    serve.main(["--batches", "1", "--batch", "2", "--lanes", "4", *SMALL])
+    line, rep = _report(capsys.readouterr().out)
+    assert rep["lanes"] == {"ingest": 1, "decode": 4, "rs": 4}
+    assert len(rep["allocation"]) == 3 and rep["images"] == 2
+    assert len(rep["lane_loads"]) == 9
+
+
+def test_ragged_stream_is_padded_and_sliced():
+    """--ragged batches through the service: each LPT task is padded to
+    its bucket (here multiples of 3 rows) and its result sliced to the
+    true rows, equal to detect_batch of the padded task under the
+    stream's key."""
+    args = serve.parse_args(["--batches", "2", "--batch", "4", "--ragged",
+                             "--lanes", "2", *SMALL])
+    cfg, params = serve.build_config(args)
+    svc = serve.DetectionService(cfg, params, lanes=2, device="cpu",
+                                 pad_bucket=3)
+    _, batches = serve.make_batches(args)
+    svc.warmup_stats[cfg.tile] = (1e-3, 1e3)
+    work, _ = svc.plan(batches)
+    assert sum(tb for _, tb in work) == sum(b.shape[0] for b in batches)
+    assert all(sl.shape[0] % 3 == 0 for sl, _ in work)
+    rep = svc.serve(batches)
+    assert rep.images == sum(b.shape[0] for b in batches)
+    pipe = serve.build_pipeline(args)
+    for i, ((sl, tb), res) in enumerate(zip(work, svc.results)):
+        want = pipe.detect_batch(sl, key=prng.fold_in(prng.key(0), i),
+                                 true_b=tb)
+        assert res["ok"].shape == (tb,)
+        np.testing.assert_array_equal(res["logits"], want["logits"][:tb])
+    svc.close()
+
+
+def test_sharded_serve(capsys):
+    """--sharded: each batch through run_batch over the pipeline's
+    device; the report has the reference's fields (no lane allocation:
+    the sharded path does not pipeline)."""
+    serve.main(["--batches", "2", "--batch", "3", "--sharded", *SMALL])
+    line, rep = _report(capsys.readouterr().out)
+    assert rep["images"] == 6 and rep["device"] == "cpu"
+    assert rep["allocation"] is None and rep["lanes"] is None
+    assert rep["lane_loads"] is None
 
 
 @pytest.mark.parametrize("flags,want", [
@@ -155,6 +214,6 @@ def test_escalation_runs(capsys):
     assert (used[~results[0]["ok"]] == 3).all()
     serve.main(["--batches", "1", "--batch", "2", "--escalate-tiles", "3",
                 *SMALL])
-    rep = json.loads(capsys.readouterr().out)
+    _, rep = _report(capsys.readouterr().out)
     assert set(rep) == {"images", "wall_s", "throughput_ips", "allocation",
                         "lanes", "lane_loads", "straggler_retries", "device"}
