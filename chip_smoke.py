@@ -100,10 +100,25 @@ In order, it
    upload; host µs a batch by part; keys and offsets with 1, 2 and 4
    threads at once; ``run_batch`` == ``detect_batch``; the launcher's
    ``main`` adaptive, ``--lanes 4`` and ``--sharded``;
-8. checks the default and the staged path, and the bf16 and int8 rungs,
+8. drives the online server at full width (``phase_online``): a seeded
+   stream of 200 requests of 1 to 8 images through ``DetectionServer``
+   (micro-batches of up to 32, a 2 ms deadline), at fp32 and int8, each
+   request equal to ``detect_batch`` under its key bit for bit, one
+   launch of each main-path kernel a micro-batch, matched against a
+   profiled pass's trace, with throughput, latency percentiles, batch
+   occupancy and the host µs of ``submit``; the exact tier on a repeated
+   pool (hits and coalesced followers equal the cold path and
+   ``detect_batch`` at the content key); the decode's ``with_embed``
+   logits equal the embed-free ones bit for bit at every rung, flat and
+   blocked, its embedding the plain version's; ``escalate_tiles=3``
+   through the server on the escalation workload equal to
+   ``detect_batch``; and ``python -m repro_torch.launch.serve --online``
+   at its defaults, at full width under open-loop load, and with the
+   caches and escalation on a Zipf pool;
+9. checks the default and the staged path, and the bf16 and int8 rungs,
    against the JAX package's golden outputs
    (``tests/data/torch_port_golden.npz``);
-9. prints one ``{"kernels": [...]}`` line and, last, the status line.
+10. prints one ``{"kernels": [...]}`` line and, last, the status line.
 
 Every failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available or when
@@ -219,13 +234,17 @@ def traced_grids(launch, name: str) -> list:
     launch order, read from the trace's kernel events (empty where the
     profiler saw none)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):  # the primer of profile_path
+    # the warm-up step of profile_path: ``launch`` once, traced and
+    # discarded, then the step the trace keeps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(8):
             torch.cuda._sleep(1000)
+        launch()
         torch.cuda.synchronize()
+        prof.step()
         launch()
         torch.cuda.synchronize()
     path = OUT / f"{name}_trace.json"
@@ -1239,16 +1258,21 @@ def profile_path(pipe, batches, card: str, name: str = "serve", key=None):
     where the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.core import prng
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # a later session in the process can miss its first few device
-        # events: let them be a primer's (torch's spin kernel, a few
-        # microseconds each), left out of the rows below
+    # a later session in the process can miss its first few device events:
+    # a warm-up step (traced, then discarded) runs the path once on the
+    # first batch under a fixed key (the batch counter does not move), and
+    # only the step after it makes the rows below
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         for _ in range(8):
             torch.cuda._sleep(1000)
+        pipe.detect_batch(batches[0], key=prng.key(0) if key is None
+                          else key)
         torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for raw in batches:
             pipe.detect_batch(raw, key=key)
@@ -2472,6 +2496,404 @@ def phase_lanes(batches, card: str, dev: str = "cuda") -> dict:
     return out
 
 
+# -- phase 8: the online server (repro_torch.serving) ----------------------
+ONLINE_REQUESTS = 200    # the seeded request stream a rung serves
+ONLINE_MAX_IMAGES = 8    # images a request: 1 to this
+ONLINE_MAX_BATCH = 32    # the micro-batcher's cap (the offline batch)
+ONLINE_WAIT_MS = 2.0     # its deadline for partial micro-batches
+ONLINE_KERNELS = ("fused_tile_preprocess", "fused_extractor", "rs_decode")
+# open-loop load at full width through the launcher: requests/s offered,
+# images a request (the generator makes each request's 288^2 images with
+# synth_image on the host, ~70 images/s on the card's host: a higher
+# rate would measure the generator, not the server)
+ONLINE_QPS, ONLINE_GROUP = 12.0, 4
+
+
+def online_server(cfg, params, dev: str = "cuda", **kw):
+    """A DetectionServer on ``dev`` with the phase's batcher (``kw`` to
+    the server), not yet warmed up or started."""
+    from repro_torch.serving import BatcherConfig, DetectionServer
+    return DetectionServer(cfg, params, batcher=BatcherConfig(
+        max_batch=ONLINE_MAX_BATCH, max_wait_ms=ONLINE_WAIT_MS),
+        device=dev, **kw)
+
+
+def online_stream(pool, n: int, seed: int = 0):
+    """``n`` requests of 1 to ONLINE_MAX_IMAGES distinct rows of ``pool``
+    each, and the gap after each: none for half of them (so requests
+    coalesce), up to 2 ms for the rest (so micro-batches also ship
+    part-full at their deadline)."""
+    rng = np.random.default_rng(seed)
+    reqs = [pool[np.sort(rng.choice(len(pool), int(rng.integers(
+        1, ONLINE_MAX_IMAGES + 1)), replace=False))] for _ in range(n)]
+    gaps = np.where(rng.random(n) < 0.5, 0.0, rng.uniform(0.0, 2e-3, n))
+    return reqs, gaps
+
+
+def online_submit(srv, reqs, gaps, keys=None):
+    """Submit a stream (request i under ``keys[i]``, or keyless) at its
+    gaps; wait for every handle.  Returns (results, host µs of each
+    ``submit``, wall s, the first request id)."""
+    rid0 = srv._req_seq
+    handles, sub_us = [], []
+    t0 = time.perf_counter()
+    for i, (r, g) in enumerate(zip(reqs, gaps)):
+        t = time.perf_counter()
+        handles.append(srv.submit(r, key=None if keys is None else keys[i]))
+        sub_us.append((time.perf_counter() - t) * 1e6)
+        if g:
+            time.sleep(g)
+    results = [h.result(300) for h in handles]
+    wall = time.perf_counter() - t0
+    check(all(h.done() for h in handles) and srv.drain(60),
+          "online: a request was left unresolved")
+    return results, sub_us, wall, rid0
+
+
+def online_hold(srv, reqs, results, keys, label: str):
+    """Each served request equals ``detect_batch`` of its images under its
+    key on the server's own pipeline, by result hash."""
+    pipe = srv.pipe
+    for i, (r, res) in enumerate(zip(reqs, results)):
+        want = pipe.detect_batch(r, key=keys[i])
+        check(result_hash([res]) == result_hash([want]),
+              f"online {label}: request {i} ({r.shape[0]} images) differs "
+              f"from detect_batch under its key")
+
+
+def online_rung(cfg, params, reqs, gaps, card: str, label: str,
+                dev: str = "cuda", trace: bool = True) -> dict:
+    """The seeded stream through a warmed server (keyless: request id i
+    under fold_in(key(seed), i)), every request held to ``detect_batch``
+    bit for bit; throughput, latency percentiles, occupancy and the
+    submit's host time; on the card the launches of each kernel per
+    micro-batch, matched against a profiled second pass's trace."""
+    from repro_torch.kernels import ops
+    srv = online_server(cfg, params, dev)
+    try:
+        t0 = time.perf_counter()
+        buckets = srv.warmup(reqs[0][0])
+        warm_s = time.perf_counter() - t0
+        srv.start()
+        srv.metrics.reset()
+        on_card = dev != "cpu"
+        if on_card:
+            import torch
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+        results, sub_us, wall, rid0 = online_submit(srv, reqs, gaps)
+        st = srv.stats()
+        counts = ops.launch_counts() if on_card else {}
+        kcounts = ops.kernel_launch_counts() if on_card else {}
+        n_mb = st["batch_images"]["n"]
+        out = dict(
+            buckets=buckets, warmup_s=warm_s, requests=len(reqs),
+            images=int(sum(r.shape[0] for r in reqs)), wall_s=wall,
+            requests_per_s=len(reqs) / wall,
+            images_per_s=sum(r.shape[0] for r in reqs) / wall,
+            latency_ms={q: st["request_latency_s"][q] * 1e3
+                        for q in ("p50", "p95", "p99", "mean")},
+            micro_batches=n_mb,
+            occupancy=st["batch_occupancy"]["mean"],
+            images_a_micro_batch=st["batch_images"]["mean"],
+            straggler_retries=st["straggler_retries"],
+            submit_us={"mean": statistics.mean(sub_us),
+                       "p50": statistics.median(sub_us),
+                       "p99": sorted(sub_us)[int(0.99 * (len(sub_us) - 1))]},
+            lanes=st["lanes"])
+        if on_card:
+            # a speculative retry of a straggling micro-batch runs it again
+            runs = n_mb + st["straggler_retries"]
+            check(all(counts[k] == runs for k in ONLINE_KERNELS) and
+                  sum(counts.values()) == runs * len(ONLINE_KERNELS),
+                  f"online {label}: launches {counts} in {n_mb} "
+                  f"micro-batches and {st['straggler_retries']} retries, "
+                  f"not one of each kernel a run")
+            out["launches"] = counts
+            out["launches_a_micro_batch"] = {k: counts[k] / runs
+                                             for k in ONLINE_KERNELS}
+            out["decode_kernels_a_micro_batch"] = {
+                k: v / runs for k, v in kcounts.items()}
+        keys = [srv.registry.batch_key(rid0 + i) for i in range(len(reqs))]
+        if on_card and trace:
+            out["trace"] = online_trace(srv, reqs[:40], gaps[:40], card,
+                                        label)
+    finally:
+        srv.close()
+    online_hold(srv, reqs, results, keys, label)
+    print(f"online {label}: {len(reqs)} requests ({out['images']} images) "
+          f"in {n_mb} micro-batches (occupancy {out['occupancy']:.3f}, "
+          f"{out['images_a_micro_batch']:.2f} images each), "
+          f"{out['requests_per_s']:.1f} requests/s = "
+          f"{out['images_per_s']:.1f} images/s, latency ms p50/p95/p99 "
+          f"{out['latency_ms']['p50']:.3f}/{out['latency_ms']['p95']:.3f}/"
+          f"{out['latency_ms']['p99']:.3f}, submit µs mean "
+          f"{out['submit_us']['mean']:.1f} p99 {out['submit_us']['p99']:.1f}"
+          f", retries {out['straggler_retries']}, launches a micro-batch "
+          f"{json.dumps(out.get('launches_a_micro_batch'))}; every request "
+          f"== detect_batch bit for bit, on {card}")
+    return out
+
+
+def online_trace(srv, reqs, gaps, card: str, label: str) -> dict:
+    """A profiled pass of part of the stream through the running server:
+    the launches of each kernel counted from the trace (the ingest
+    kernel, the decode's kernels, the RS kernel) against the wrappers'
+    counts of the same pass; device busy and idle share.  A session can
+    miss its first device events, so a primer of 8 requests runs first
+    in it, and only device events after the counted pass's annotation
+    are read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_extractor import is_decode_kernel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        online_submit(srv, reqs[:8], gaps[:8])
+        torch.cuda.synchronize()
+        srv.metrics.reset()
+        ops.reset_launch_counts()
+        with record_function("online_counted_pass"):
+            t0 = time.perf_counter()
+            online_submit(srv, reqs, gaps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    counts, kcounts = ops.launch_counts(), ops.kernel_launch_counts()
+    st = srv.stats()
+    n_mb = st["batch_images"]["n"]
+    path = OUT / f"online_{label}_trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())["traceEvents"]
+    marks = [float(e["ts"]) for e in trace
+             if e.get("name") == "online_counted_pass"]
+    events = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)))
+              for e in trace
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and marks and float(e["ts"]) >= marks[0]]
+    if not events:
+        print(f"online {label} profile: the profiler saw no device time "
+              f"(not measured)")
+        return {"measured": False}
+    traced = {"fused_tile_preprocess": sum(
+                  INGEST_KERNEL in e[0] for e in events),
+              "fused_extractor": sum(is_decode_kernel(e[0]) for e in events),
+              "rs_decode": sum(RS_KERNEL in e[0] for e in events)}
+    want = {"fused_tile_preprocess": counts["fused_tile_preprocess"],
+            "fused_extractor": sum(kcounts.values()),
+            "rs_decode": counts["rs_decode"]}
+    check(traced == want, f"online {label}: traced kernels {traced}, "
+          f"counted {want} ({n_mb} micro-batches)")
+    busy = busy_union_ms([(n, ts, d, None) for n, ts, d in events])
+    out = dict(measured=True, micro_batches=n_mb,
+               straggler_retries=st["straggler_retries"], traced=traced,
+               wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
+               busy_ms_a_micro_batch=busy / n_mb)
+    print(f"online {label} profile: {len(reqs)} requests in {n_mb} "
+          f"micro-batches, traced launches {traced} == counted, wall "
+          f"{wall_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"({out['busy_ms_a_micro_batch']:.3f} a micro-batch), idle "
+          f"share <= {out['idle_share']:.3f}, on {card}")
+    return out
+
+
+def online_cache(cfg, params, reqs, card: str, dev: str = "cuda") -> dict:
+    """The exact tier on a repeated pool of 8 requests: each submitted
+    three times back to back (followers coalesce onto the leader in
+    flight), then five more rounds (hits); every result equals the cold
+    path and ``detect_batch`` at the content key bit for bit, every
+    handle resolves once, no follower is left behind."""
+    import dataclasses
+    pool = reqs[:8]
+    srv = online_server(dataclasses.replace(cfg, cache_exact=True), params,
+                        dev)
+    try:
+        srv.warmup(pool[0][0])
+        srv.start()
+        srv.metrics.reset()
+        order = [i for i in range(8) for _ in range(3)] + list(range(8)) * 5
+        sent = [pool[i] for i in order]
+        results, _, wall, _ = online_submit(srv, sent, [0.0] * len(sent))
+        st = srv.stats()
+        check(srv._dedup.depth() == 0, "online cache: followers left")
+    finally:
+        srv.close()
+    n = len(sent)
+    hit, dd, miss = (st[k] for k in ("cache_hit_exact", "dedup_coalesced",
+                                     "cache_miss"))
+    check(hit + dd + miss == n and miss >= 8 and
+          st["counters"]["requests_completed"] == n,
+          f"online cache: hits {hit} + coalesced {dd} + misses {miss} "
+          f"over {n} requests, completed "
+          f"{st['counters'].get('requests_completed')}")
+    cold = {}
+    for i, res in zip(order, results):
+        h = result_hash([res])
+        check(cold.setdefault(i, h) == h,
+              f"online cache: request {i} served two different results")
+    for i in range(8):
+        want = srv.pipe.detect_batch(pool[i], key=srv.content_key(pool[i]))
+        check(cold[i] == result_hash([want]),
+              f"online cache: request {i} differs from detect_batch at its "
+              f"content key")
+    out = dict(requests=n, hit_exact=hit, dedup_coalesced=dd, miss=miss,
+               hit_rate=st["cache_hit_rate"], wall_s=wall)
+    print(f"online cache: {n} requests over 8 distinct: {hit} exact hits, "
+          f"{dd} coalesced, {miss} misses (hit rate "
+          f"{st['cache_hit_rate']:.3f}); every hit and follower == the cold "
+          f"result == detect_batch at the content key, bit for bit, on "
+          f"{card}")
+    return out
+
+
+def online_embed(dev, card: str) -> dict:
+    """The decode with ``with_embed`` at full width, b = 32: its logits
+    bitwise the embed-free call's on the flat kernel at every rung and
+    on the serve schedule's blocked one, its embedding against the plain
+    version's (fp32 within LOGIT_RTOL, the lower rungs within
+    RUNG_ATOL)."""
+    import torch
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import fused_extractor as fx
+    rng = np.random.default_rng(3)
+    tiles = torch.as_tensor(rng.normal(size=(32, 64, 64, 3)).astype(
+        np.float32)).to(dev)
+    out = {}
+    for dtype in ("fp32", *RUNGS):
+        packed = rung_pack(dev, dtype)
+        _, g_plain = fx.fused_extractor_plain(tiles, packed, with_embed=True)
+        ref = g_plain.cpu().numpy()
+        tol = logit_tol(ref) if dtype == "fp32" else RUNG_ATOL
+        for sched in (None, autotune.Schedule.from_string(SERVE_SCHEDULE)):
+            name = f"{dtype}-{'flat' if sched is None else SERVE_SCHEDULE}"
+            lg, g = ops.fused_extractor(tiles, packed, schedule=sched,
+                                        with_embed=True)
+            plain_lg = ops.fused_extractor(tiles, packed, schedule=sched)
+            check(torch.equal(lg, plain_lg),
+                  f"online embed {name}: with_embed changed the logits")
+            err = float(np.abs(g.cpu().numpy() - ref).max())
+            check(err <= tol, f"online embed {name}: embedding off the "
+                  f"plain version by {err} > {tol}")
+            out[name] = err
+    print(f"online embed: with_embed logits == embed-free bit for bit, "
+          f"embedding max |err| vs plain {json.dumps(out)}, on {card}")
+    return out
+
+
+def online_escalation(card: str, dev: str = "cuda", geo=FULL, width=WIDTH,
+                      raw_hw: int = RAW, b: int = 32,
+                      rms: float = ESC_RMS) -> dict:
+    """escalate_tiles=3 through the server on the escalation phase's
+    workload (4 damaged batches as in ``lane_escalation``, each one
+    request under batch key i): escalation rounds re-submitted as
+    payloads of the groups' true rows, every request equal to
+    ``detect_batch`` with escalation bit for bit."""
+    from repro_torch.core import tiling
+    from repro_torch.core.detect import DetectionConfig
+    p, msg, clean_f = esc_workload(geo, width, raw_hw, b, rms)
+    srv = online_server(DetectionConfig(**geo, escalate_tiles=ESC_K), p, dev)
+    st, o = srv.registry, (raw_hw - geo["img_size"]) // 2
+    damaged = [i for i in ESC_DAMAGED if i < b]
+    stream = []
+    for i in range(4):
+        offs = tiling.tile_first_offsets(
+            "random_grid", st.image_keys(st.batch_key(i), b),
+            img_size=geo["img_size"], tile=geo["tile"]).numpy()
+        stream.append(esc_damage(clean_f, offs + o, damaged, geo["tile"],
+                                 sigma=ESC_SIGMA))
+    keys = [st.batch_key(i) for i in range(4)]
+    try:
+        srv.warmup(stream[0][0])
+        srv.start()
+        srv.metrics.reset()
+        results, _, wall, _ = online_submit(srv, stream, [0.0] * 4, keys)
+        stats = srv.stats()
+    finally:
+        srv.close()
+    online_hold(srv, stream, results, keys, "escalation")
+    used = np.stack([r["tiles_used"] for r in results])
+    match = np.stack([(r["message_bits"] == msg).all(axis=1)
+                      for r in results])
+    check((used[:, damaged] > 1).mean() >= 0.8 and match.mean() >= 0.8 and
+          stats["escalation_batches"] > 0,
+          f"online escalation: tiles_used {used.tolist()}, match "
+          f"{match.mean()}")
+    out = dict(escalation_batches=stats["escalation_batches"],
+               escalation_rate=stats["escalation_rate"],
+               tiles_used=used.sum(axis=1).tolist(),
+               match=float(match.mean()), wall_s=wall)
+    print(f"online escalation (k = {ESC_K}, 4 damaged requests of {b}): "
+          f"{out['escalation_batches']} escalation micro-batches, "
+          f"escalation rate {out['escalation_rate']:.4f}, tiles_used a "
+          f"request {out['tiles_used']}, match {out['match']:.3f}; each "
+          f"== detect_batch with escalation bit for bit, on {card}")
+    return out
+
+
+def online_launcher(card: str, dev: str = "cuda", lane_args=LANE_ARGS,
+                    duration: float = 5.0) -> dict:
+    """``python -m repro_torch.launch.serve --online`` through its
+    ``main`` in this process: at the default flags, at full width under
+    open-loop load, and with the caches and escalation on a Zipf pool;
+    each prints a report with no failed, rejected-then-lost or
+    unresolved request."""
+    from repro_torch.launch import serve as serve_lib
+    d = ["--duration", str(duration)]
+    runs = {
+        "default": d,
+        "full_width_load": [*lane_args, *d, "--qps", str(ONLINE_QPS),
+                            "--group", str(ONLINE_GROUP), "--max-batch",
+                            str(ONLINE_MAX_BATCH)],
+        "cache_zipf_escalation": [
+            *d, "--pool", "64", "--zipf", "1.2", "--cache-exact",
+            "--cache-embed-threshold", "0.95", "--escalate-tiles", "3"]}
+    out = {}
+    for name, flags in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_lib.main(["--online", "--device", dev, *flags])
+        text = buf.getvalue()
+        line, _, rest = text.partition("\n")
+        check(line.startswith("online: warmed buckets"),
+              f"serve --online {name}: {text[:200]}")
+        rep = json.loads(rest)
+        check(rep["failed"] == 0 and rep["unresolved"] == 0 and
+              rep["completed"] == rep["offered"] - rep["rejected"],
+              f"serve --online {name}: report {rep}")
+        if "--cache-exact" in flags:
+            check("cache" in rep and "escalation_rate" in rep,
+                  f"serve --online {name}: no cache/escalation block")
+        out[name] = rep
+        print(f"serve --online {' '.join(flags)}: {json.dumps(rep)} on "
+              f"{card}")
+    return out
+
+
+def phase_online(batches, card: str, dev: str = "cuda") -> dict:
+    """The online server at full width (C 64, D 7, 60 bits, tile 64,
+    img 256, raw 288): a seeded stream of ONLINE_REQUESTS requests of 1
+    to 8 images at fp32 and int8, each equal to ``detect_batch`` under
+    its key; the exact tier; the embedding decode; escalation through
+    the server; launches per micro-batch matched to a trace; the
+    launcher's ``--online``."""
+    from repro_torch.launch import serve as serve_lib
+    pool = np.concatenate(list(batches))
+    reqs, gaps = online_stream(pool, ONLINE_REQUESTS)
+    out = {"rungs": {}}
+    for dtype in ("fp32", "int8"):
+        args = serve_lib.parse_args([*LANE_ARGS, "--device", dev,
+                                     "--decode-dtype", dtype])
+        cfg, params = serve_lib.build_config(args)
+        out["rungs"][dtype] = online_rung(cfg, params, reqs, gaps, card,
+                                          dtype, dev)
+        if dtype == "fp32":
+            out["cache"] = online_cache(cfg, params, reqs, card, dev)
+    out["embed"] = online_embed(dev, card)
+    out["escalation"] = online_escalation(card, dev)
+    out["launcher"] = online_launcher(card, dev)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2553,6 +2975,9 @@ def main() -> int:
     t_lanes = time.perf_counter()
     lanes = phase_lanes(batches, card)
     print(f"lanes phase: {time.perf_counter() - t_lanes:.1f} s")
+    t_online = time.perf_counter()
+    online = phase_online(batches, card)
+    print(f"online phase: {time.perf_counter() - t_online:.1f} s")
     phase_golden()
     phases["rs_decode"]["device_ms"] = rs_device_ms(dev, rng, card)
 
@@ -2611,6 +3036,12 @@ def main() -> int:
         if name in ("fused_tile_preprocess", "fused_extractor",
                     "fused_preprocess"):
             entry["serve_device_ms"] = phases[name]["serve_device_ms"]
+        if name in ONLINE_KERNELS:
+            # launches a micro-batch of the online server's seeded
+            # stream, at fp32 and int8
+            entry["online_launches_a_micro_batch"] = {
+                dt: online["rungs"][dt]["launches_a_micro_batch"][name]
+                for dt in ("fp32", "int8")}
         if name in ("fused_tile_preprocess", "fused_extractor",
                     "rs_decode"):
             # each counted run of the escalation path: one launch a
@@ -2657,7 +3088,7 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phases": phases,
          "rungs": rungs, "window_ips": window_ips, "configs": configs,
-         "escalation": escalation, "lanes": lanes},
+         "escalation": escalation, "lanes": lanes, "online": online},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,9 @@ staged one (ingest -> decode -> bits -> ``rs_correct``).  With
 RS failed, or whose mean |logit| is below ``escalate_margin``, are
 decoded again on up to k - 1 more tiles of their plan, their soft bits
 summed (``StageRegistry.escalate``); the result gains a ``tiles_used``
-column.  The serving cache is not ported yet (ROADMAP queue 1 item 13).
+column.  The serving cache's fields configure the online server
+(``repro_torch.serving.DetectionServer``); the offline engines here
+ignore them, as in the reference.
 
 Execution engines, all on the one registry:
 
@@ -69,9 +71,10 @@ class DetectionConfig:
     """Configuration of the detection engines, with the reference's
     fields, names and defaults.  Every mode, ingest path, RS engine and
     code, decode schedule and decode dtype runs, and escalation
-    (``escalate_tiles``, ``escalate_margin``); a serving-cache setting
-    raises ``NotImplementedError`` when a pipeline is built (see
-    ``stages.check_config``)."""
+    (``escalate_tiles``, ``escalate_margin``).  The serving cache's
+    fields (``cache_exact``, ``cache_embedding_threshold`` and the
+    capacities) are range-checked when a pipeline is built
+    (``stages.check_config``) and read by the online server only."""
     tile: int = 64
     img_size: int = 256
     resize_src: int = 288          # raw -> resize -> centercrop(img_size)

@@ -355,3 +355,11 @@ def extractor_forward(params: dict, tiles: torch.Tensor) -> torch.Tensor:
     """tiles (b, l, l, 3) -> bit logits (b, n_bits), via the packed
     body."""
     return extractor_forward_packed(pack_params(params), tiles)
+
+
+def extractor_forward_embed(params: dict, tiles: torch.Tensor):
+    """Unfused forward returning (logits, GAP embedding): the
+    embed-emitting decode of pipelines without the fused kernel (the
+    near-duplicate cache's probe), on the packed body, so its logits are
+    bitwise :func:`extractor_forward`'s."""
+    return extractor_forward_packed_embed(pack_params(params), tiles)

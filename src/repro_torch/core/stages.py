@@ -36,9 +36,11 @@ a CUDA stream of its own (``lanes.LaneStreams``).
 PyTorch runs eagerly, so there is no ``jit``: :meth:`fused_keyed` (qrmark
 with device RS) is the steps in sequence.  Keys are integer hashing,
 bit-exact anywhere, and live on the host; the offsets they give are
-copied to the device with the raw batch.  The serving cache's settings
-and the stage graph's ``emit_embed`` raise ``NotImplementedError``
-naming the ROADMAP item that brings them (13).
+copied to the device with the raw batch.  The serving tier adds the
+content-derived request key (:meth:`StageRegistry.content_key`) and the
+embedding-emitting decode (:meth:`StageRegistry.decode_keyed_embed`,
+``build_stages(emit_embed=True)``), whose logits are bitwise the
+embed-free decode's.
 """
 from __future__ import annotations
 
@@ -112,16 +114,11 @@ class EscalationPolicy:
         return need
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 "
-        f"item {item})")
-
-
 def check_config(cfg):
-    """Raise for an invalid configuration (``ValueError``, the
-    reference's rules), or one outside the ported slices
-    (``NotImplementedError``)."""
+    """Raise ``ValueError`` for an invalid configuration (the
+    reference's rules).  The serving cache's fields are checked for
+    range only: the offline engines ignore them, as in the reference,
+    and ``serving.DetectionServer`` reads them."""
     if cfg.mode not in ("sequential", "tiled", "qrmark"):
         raise ValueError(f"unknown pipeline mode {cfg.mode!r}")
     if cfg.rs_mode not in ("device", "cpu_pool", "cpu_sync"):
@@ -154,9 +151,6 @@ def check_config(cfg):
                 f"escalate_tiles={k} exceeds the {cap} distinct "
                 f"{cfg.strategy!r} tiles of a {cfg.img_size}^2/"
                 f"{cfg.tile}^2 image")
-    if cfg.cache_exact or cfg.cache_embedding_threshold > 0.0:
-        _unported("the serving cache (cache_exact / "
-                  "cache_embedding_threshold)", "13")
 
 
 class StageRegistry:
@@ -222,6 +216,15 @@ class StageRegistry:
         key = torch.as_tensor(key, dtype=torch.int64)
         return prng.fold_in(key[None].expand(b, 2),
                             torch.arange(b, dtype=torch.int64))
+
+    def content_key(self, fingerprint: int) -> torch.Tensor:
+        """Content-addressed request key: ``fold_in(key(cfg.seed),
+        fingerprint32(content digest))``.  The serving tier uses it for
+        keyless requests when the exact result cache is on: identical
+        pixels then get identical per-image keys, which is what makes a
+        cache hit bitwise equal to the cold path (the contract of
+        :meth:`batch_key`, with content in place of arrival order)."""
+        return prng.fold_in(self.base_key, int(fingerprint) & 0xFFFFFFFF)
 
     # -- stages ----------------------------------------------------------
     def to_device(self, raw) -> torch.Tensor:
@@ -295,16 +298,38 @@ class StageRegistry:
                                         schedule=self.decode_schedule)
         return extractor_lib.extractor_forward(self.params, tiles)
 
-    def decode_keyed(self, x: torch.Tensor, keys: torch.Tensor
+    def extract_embed(self, tiles: torch.Tensor):
+        """:meth:`extract` that also returns the (b, n_bits) GAP
+        embedding: the fused kernel with ``with_embed`` (the same
+        launches, the head also writing the embedding) or the plain
+        ``extractor_forward_embed``.  The logits are bitwise
+        :meth:`extract`'s."""
+        if self.fused_decode:
+            return kops.fused_extractor(tiles, self.packed_params,
+                                        schedule=self.decode_schedule,
+                                        with_embed=True)
+        return extractor_lib.extractor_forward_embed(self.params, tiles)
+
+    def _keyed_tiles(self, x: torch.Tensor, keys: torch.Tensor
                      ) -> torch.Tensor:
-        """Decode input + per-image keys -> (b, n_bits) logits; the
-        staged path picks each image's tile here (``sequential`` decodes
-        the full image)."""
+        """The decode input's tiles: the staged path picks each image's
+        tile here (``sequential`` decodes the full image)."""
         cfg = self.cfg
         if not (self.tile_first or cfg.mode == "sequential"):
             x, _ = tiling.select_tiles_per_image(cfg.strategy, keys, x,
                                                  cfg.tile)
-        return self.extract(x)
+        return x
+
+    def decode_keyed(self, x: torch.Tensor, keys: torch.Tensor
+                     ) -> torch.Tensor:
+        """Decode input + per-image keys -> (b, n_bits) logits."""
+        return self.extract(self._keyed_tiles(x, keys))
+
+    def decode_keyed_embed(self, x: torch.Tensor, keys: torch.Tensor):
+        """:meth:`decode_keyed` that also returns the GAP embedding:
+        (logits, embed), the same tile selection, the logits bitwise
+        :meth:`decode_keyed`'s (the near-duplicate cache's probe)."""
+        return self.extract_embed(self._keyed_tiles(x, keys))
 
     @staticmethod
     def bits(logits: torch.Tensor) -> torch.Tensor:
@@ -504,11 +529,9 @@ class StageRegistry:
         lane (:meth:`escalate_prefix`, on the first ``true_b`` rows when
         the payload carries one), adding ``tiles_used``.
 
-        ``emit_embed`` (the near-duplicate cache's embedding) is not
-        ported: it raises ``NotImplementedError``."""
-        if emit_embed:
-            _unported("the stage graph's emit_embed (the GAP embedding "
-                      "for the near-duplicate cache)", "13")
+        ``emit_embed`` (the server with the near-duplicate cache on)
+        makes round-0 decode also put the GAP embedding in the payload
+        as ``embed``; the logits are bitwise unchanged."""
         streams = lanes_lib.LaneStreams(self.device)
 
         def st_ingest(p):
@@ -526,6 +549,9 @@ class StageRegistry:
         def st_decode(p):
             if p.get("round", 0) > 0:
                 logits = self.decode_tiles(p["x"])
+            elif emit_embed:
+                logits, p["embed"] = self.decode_keyed_embed(p["x"],
+                                                             p["keys"])
             else:
                 logits = self.decode_keyed(p["x"], p["keys"])
             if p.get("acc_logits") is not None:

@@ -1,5 +1,8 @@
-"""Serving launcher, offline batch regime (counterpart of the offline
-``DetectionService`` regime of ``repro.launch.serve``).
+"""Serving launcher (counterpart of ``repro.launch.serve``), in two
+regimes: the offline batch stream (:class:`DetectionService`) and, with
+``--online``, the request-level server
+(``repro_torch.serving.DetectionServer``) under open-loop Poisson load
+(:func:`run_online`).
 
 :class:`DetectionService` is the reference's offline service: its
 ``warmup`` profiles the pipeline's three stage functions on its device
@@ -36,12 +39,25 @@ up to k - 1 more tiles, summing their soft bits) and
 ``--escalate-margin`` (also escalate images whose mean |logit| is below
 it).
 
+``--online`` serves per-request submissions arriving through
+:func:`open_loop_load` (``--qps`` for ``--duration`` seconds, ``--group``
+images a request) through the micro-batcher (``--max-batch``,
+``--max-wait-ms``, ``--max-queue``; SLO classes ``--classes
+name:deadline_ms,...`` with ``--bulk-frac`` of the requests in the
+lowest), with live lane reallocation every ``--realloc-every``
+micro-batches, the exact result cache and dedup-in-flight
+(``--cache-exact``), the near-duplicate embedding tier
+(``--cache-embed-threshold``) and a repeat-heavy workload drawn from
+``--pool`` images (Zipf-skewed by ``--zipf``), and prints its report
+JSON: throughput, latency percentiles, batch occupancy, rejections,
+straggler retries, cache and escalation counters.
+
 Runs on the card by default; ``--device cpu`` runs the plain versions.
-Flags of the reference launcher for the online server, the fleet, the
-serving cache and the compilation cache (ROADMAP queue 1 item 13) are
-rejected by argparse as unrecognized, never ignored.  Prints the
-``allocation:`` line of Algorithm 1, then the ``ServiceReport`` JSON
-(with the device it ran on).
+The reference launcher's fleet and compilation-cache flags
+(``--fleet``, ``--replicas``, ``--compilation-cache``; ROADMAP queue 1
+item 13c) are rejected by argparse as unrecognized, never ignored.
+Offline, prints the ``allocation:`` line of Algorithm 1, then the
+``ServiceReport`` JSON (with the device it ran on).
 
     python -m repro_torch.launch.serve --batches 3 --batch 32 \
         --img 256 --tile 64 [--lanes N] [--ragged] [--sharded] [--mode M] \
@@ -49,6 +65,11 @@ rejected by argparse as unrecognized, never ignored.  Prints the
         [--decode-dtype fp32|bf16|int8] [--schedule S] [--autotune] \
         [--autotune-cache PATH] [--escalate-tiles K] [--escalate-margin X] \
         [--device cuda|cpu]
+    python -m repro_torch.launch.serve --online --qps 50 --duration 5 \
+        [--group N] [--max-batch N] [--max-wait-ms X] [--max-queue N] \
+        [--realloc-every N] [--cache-exact] [--cache-embed-threshold X] \
+        [--classes interactive:5,bulk:50 --bulk-frac 0.3] \
+        [--pool N [--zipf X]] [offline flags...]
 """
 from __future__ import annotations
 
@@ -56,7 +77,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,7 +92,7 @@ from repro_torch.core.stages import host_numpy
 from repro_torch.data.pipeline import synth_image
 from repro_torch.kernels import autotune as autotune_lib
 from repro_torch.launch.mesh import make_detection_mesh
-from repro_torch.serving.batcher import pad_to_bucket
+from repro_torch.serving.batcher import AdmissionError, pad_to_bucket
 
 DEFAULT_AUTOTUNE_CACHE = "experiments/autotune/decode_schedules.json"
 
@@ -90,11 +111,11 @@ class ServiceReport:
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Offline batch detection service on the PyTorch port",
-        epilog="Flags of the reference launcher for the online server, "
-               "the fleet, the serving cache and the compilation cache are "
-               "not ported yet (ROADMAP.md queue 1 item 13) and are "
-               "rejected as unrecognized.",
+        description="Batch detection service (offline) and request-level "
+                    "detection server (--online) on the PyTorch port",
+        epilog="The reference launcher's fleet flags (--fleet, --replicas) "
+               "and --compilation-cache are not ported yet (ROADMAP.md "
+               "queue 1 item 13c) and are rejected as unrecognized.",
         allow_abbrev=False)
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--batch", type=int, default=32)
@@ -144,9 +165,66 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "below this margin even when RS succeeded "
                          "(0 = RS-failure trigger only; requires "
                          "--escalate-tiles > 1)")
+    ap.add_argument("--online", action="store_true",
+                    help="request-level serving: DetectionServer + "
+                         "open-loop Poisson load instead of the "
+                         "offline batch-stream service")
+    ap.add_argument("--qps", type=float, default=8.0,
+                    help="offered load for --online (requests/s)")
+    ap.add_argument("--duration", type=float, default=5.0,
+                    help="load-generation window for --online (s)")
+    ap.add_argument("--group", type=int, default=1,
+                    help="images per request for --online")
+    ap.add_argument("--max-batch", type=int, default=16,
+                    help="micro-batcher coalescing cap (--online)")
+    ap.add_argument("--max-wait-ms", type=float, default=10.0,
+                    help="micro-batcher deadline for partial batches")
+    ap.add_argument("--max-queue", type=int, default=256,
+                    help="admission-control depth bound (images)")
+    ap.add_argument("--realloc-every", type=int, default=0,
+                    help="re-run Algorithm 1 on measured stage "
+                         "latencies every N micro-batches (0 = off)")
+    ap.add_argument("--cache-exact", action="store_true",
+                    help="tier-1 content-addressed result cache + "
+                         "dedup-in-flight (--online); keyless requests "
+                         "switch to content-derived fold_in keys so "
+                         "hits are bitwise the cold-path result")
+    ap.add_argument("--cache-embed-threshold", type=float, default=0.0,
+                    help="tier-2 near-duplicate cache cosine threshold "
+                         "over the extractor GAP embedding (0 = off; "
+                         "approximate — only short-circuits "
+                         "escalation rounds)")
+    ap.add_argument("--classes", default="",
+                    help="SLO admission classes for --online as "
+                         "'name:deadline_ms,...', first = highest "
+                         "priority (e.g. 'interactive:5,bulk:50'); "
+                         "empty = single class at --max-wait-ms")
+    ap.add_argument("--bulk-frac", type=float, default=0.0,
+                    help="fraction of --online requests submitted as "
+                         "the lowest class (requires --classes)")
+    ap.add_argument("--zipf", type=float, default=0.0,
+                    help="Zipf exponent (> 1) skewing --pool draws — "
+                         "the repeat-heavy workload the content cache "
+                         "targets (0 = uniform)")
+    ap.add_argument("--pool", type=int, default=0,
+                    help="draw --online request images from a fixed "
+                         "pool of this many distinct synthetic images "
+                         "(0 = every request distinct)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     return ap.parse_args(argv)
+
+
+def parse_classes(spec: str) -> Optional[Dict[str, float]]:
+    """``--classes`` ('name:deadline_ms,...') -> {name: deadline_ms} in
+    priority order, or None when empty."""
+    if not spec:
+        return None
+    classes: Dict[str, float] = {}
+    for part in spec.split(","):
+        name, _, ms = part.partition(":")
+        classes[name.strip()] = float(ms)
+    return classes
 
 
 def make_batches(args) -> Tuple[np.ndarray, List[np.ndarray]]:
@@ -187,7 +265,10 @@ def build_config(args) -> Tuple[DetectionConfig, dict]:
                           decode_schedule=schedule,
                           autotune_cache=args.autotune_cache,
                           escalate_tiles=args.escalate_tiles,
-                          escalate_margin=args.escalate_margin)
+                          escalate_margin=args.escalate_margin,
+                          cache_exact=args.cache_exact,
+                          cache_embedding_threshold=(
+                              args.cache_embed_threshold))
     return cfg, params
 
 
@@ -380,9 +461,177 @@ class DetectionService:
         self.pipe.close()
 
 
+def open_loop_load(server, *, qps: float, duration_s: float,
+                   make_images: Callable[[int], np.ndarray],
+                   seed: int = 0,
+                   priority: Optional[Callable[[int],
+                                               Optional[str]]] = None
+                   ) -> dict:
+    """Open-loop Poisson load generator (the online serving regime).
+
+    Request k arrives at exponential inter-arrival gaps of mean
+    ``1/qps`` **regardless of completions** — unlike closed-loop
+    drivers, queueing delay is exposed instead of self-throttled, so
+    latency percentiles vs offered load mean something.  Rejected
+    submissions (admission backpressure) are counted, not retried —
+    and counted *separately* from execution failures, which surface
+    later through the handles.  ``priority`` maps request index ->
+    admission class (None = the server's highest class).
+
+    Returns {handles, offered, rejected, wall_s}; call
+    ``server.stats()`` after draining for the latency/throughput view.
+    """
+    rng = np.random.default_rng(seed)
+    handles = []
+    rejected = 0
+    t0 = time.perf_counter()
+    t_next = t0
+    k = 0
+    while t_next - t0 < duration_s:
+        now = time.perf_counter()
+        if now < t_next:
+            time.sleep(t_next - now)
+        try:
+            handles.append(server.submit(
+                make_images(k),
+                priority=priority(k) if priority else None))
+        except AdmissionError:
+            rejected += 1
+        k += 1
+        t_next += rng.exponential(1.0 / qps)
+    return {"handles": handles, "offered": k, "rejected": rejected,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _lat_ms(dist: dict) -> dict:
+    return {k: round(dist.get(k, float("nan")) * 1e3, 2)
+            for k in ("p50", "p95", "p99", "mean")}
+
+
+def run_online(cfg: DetectionConfig, params, *, qps: float,
+               duration_s: float, raw_size: int, group: int = 1,
+               max_batch: int = 16, max_wait_ms: float = 10.0,
+               max_queue: int = 256, lanes: int = 0,
+               realloc_every: int = 0, seed: int = 0,
+               classes: Optional[Dict[str, float]] = None,
+               bulk_frac: float = 0.0, zipf: float = 0.0,
+               pool: int = 0, quiet: bool = False, device=None) -> dict:
+    """Build a :class:`~repro_torch.serving.DetectionServer` on
+    ``device``, warm it up, drive it with Poisson arrivals, drain, and
+    report.
+
+    ``classes`` enables SLO-tiered admission ({name: deadline_ms},
+    first = highest priority); ``bulk_frac`` of requests are then sent
+    as the *lowest* class.  ``pool`` > 0 draws each request's images
+    from a fixed pool of ``pool`` synthetic images — uniformly, or
+    Zipf-skewed with exponent ``zipf`` > 1 — the repeat-heavy
+    workload the content cache is for."""
+    from repro_torch.serving import BatcherConfig, DetectionServer
+    lane_map = (None if lanes == 0 else
+                {"ingest": 1, "decode": max(1, lanes),
+                 "rs": max(1, lanes)})
+    srv = DetectionServer(
+        cfg, params,
+        batcher=BatcherConfig(max_batch=max_batch,
+                              max_wait_ms=max_wait_ms,
+                              max_queue=max_queue, classes=classes),
+        lanes=lane_map, realloc_every=realloc_every, device=device)
+    try:
+        buckets = srv.warmup(synth_image(0, raw_size))
+        if not quiet:
+            print(f"online: warmed buckets {buckets}, lanes "
+                  f"{srv.lane_counts()}", flush=True)
+        srv.start()
+        srv.metrics.reset()
+
+        wl_rng = np.random.default_rng(seed + 1)  # workload draws, not
+        #                                           arrival gaps
+
+        def pool_index(k: int) -> int:
+            if pool <= 0:
+                return k
+            if zipf > 1.0:
+                return int((wl_rng.zipf(zipf) - 1) % pool)
+            return int(wl_rng.integers(pool))
+
+        def make_images(k: int) -> np.ndarray:
+            base = pool_index(k)
+            return np.stack([synth_image(1000 + base * group + i, raw_size)
+                             for i in range(group)])
+
+        priority = None
+        if classes and bulk_frac > 0.0:
+            names = list(classes)
+
+            def priority(k: int) -> str:
+                return (names[-1] if wl_rng.random() < bulk_frac
+                        else names[0])
+
+        load = open_loop_load(srv, qps=qps, duration_s=duration_s,
+                              make_images=make_images, seed=seed,
+                              priority=priority)
+        srv.drain(timeout=120.0)
+        stats = srv.stats()
+    finally:
+        srv.close()
+    failed = int(stats["counters"].get("requests_failed", 0))
+    report = {
+        "qps_offered": qps, "duration_s": duration_s, "group": group,
+        "offered": load["offered"],
+        # rejected (admission backpressure) and failed (execution
+        # errors) are different outcomes — never folded together
+        "rejected": load["rejected"],
+        "rejection_rate": round(stats["rejection_rate"], 4),
+        "failed": failed,
+        "completed": int(stats["counters"].get("requests_completed", 0)),
+        "unresolved": sum(not h.done() for h in load["handles"]),
+        "throughput_rps": round(stats["throughput_rps"], 2),
+        "throughput_ips": round(stats["throughput_ips"], 2),
+        "latency_ms": _lat_ms(stats.get("request_latency_s", {})),
+        "batch_occupancy": round(
+            stats.get("batch_occupancy", {}).get("mean", float("nan")),
+            3),
+        "queue_depth_last": stats["gauges"].get("queue_depth", 0),
+        "lanes": stats["lanes"],
+        "straggler_retries": stats["straggler_retries"],
+        "device": str(srv.pipe.device),
+    }
+    if classes:
+        report["latency_ms_by_class"] = {
+            c: _lat_ms(stats.get(f"request_latency_{c}_s", {}))
+            for c in classes}
+    if cfg.cache_exact or cfg.cache_embedding_threshold > 0:
+        report["cache"] = {
+            "hit_exact": stats["cache_hit_exact"],
+            "hit_embed": stats["cache_hit_embed"],
+            "miss": stats["cache_miss"],
+            "dedup_coalesced": stats["dedup_coalesced"],
+            "hit_rate": round(stats["cache_hit_rate"], 4),
+        }
+    if srv.registry.policy.enabled:
+        report["escalation_rate"] = round(stats["escalation_rate"], 4)
+        report["escalation_batches"] = stats["escalation_batches"]
+        report["mean_tiles_per_image"] = round(
+            stats.get("tiles_per_image", {}).get("mean", 1.0), 3)
+    return report
+
+
 def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
     cfg, params = build_config(args)
+    if args.online:
+        rep = run_online(cfg, params, qps=args.qps,
+                         duration_s=args.duration,
+                         raw_size=args.img + 32, group=args.group,
+                         max_batch=args.max_batch,
+                         max_wait_ms=args.max_wait_ms,
+                         max_queue=args.max_queue, lanes=args.lanes,
+                         realloc_every=args.realloc_every,
+                         classes=parse_classes(args.classes),
+                         bulk_frac=args.bulk_frac, zipf=args.zipf,
+                         pool=args.pool, device=args.device)
+        print(json.dumps(rep, indent=1))
+        return
     svc = DetectionService(cfg, params, lanes=args.lanes,
                            device=args.device)
     try:

@@ -246,6 +246,7 @@ def model_launch(x, w, bias, *, bb, ct, db, rung):
     resident, _ = bk_smem(C, ct, cin, 4 if rung == "fp32" else 2)
     if rung == "bf16":
         x = bf16(x)  # the halo, rounded in place once it lands
+    xpad = np.pad(x.astype(F32), ((0, 0), (1, 1), (1, 1), (0, 0)))
     q = bk_region(bb)
     qw, qh = (1 if q == 1 else 2), (2 if q == 4 else 1)
     rcols = l // (BS * qw)
@@ -278,6 +279,7 @@ def model_launch(x, w, bias, *, bb, ct, db, rung):
                 .reshape(-1)
 
         s_in = np.full(BSLOTS * slot_f, np.nan, F32)
+        slot_rows = s_in.reshape(BSLOTS, BHW, BHW, sin)  # a view
         for jt in range(NT):
             if resident and (jt == 0 or not db):
                 stage(0, 9 * cin, jt)
@@ -286,15 +288,9 @@ def model_launch(x, w, bias, *, bb, ct, db, rung):
                     s_in[:] = np.nan
                     for s in range(BSLOTS):
                         img, y0, x0, act = origin(r * BSLOTS + s)
-                        if not act:
-                            continue
-                        for hy in range(BHW):
-                            for hx in range(BHW):
-                                gy, gx = y0 + hy - 1, x0 + hx - 1
-                                v = (x[img, gy, gx] if 0 <= gy < l and
-                                     0 <= gx < l else np.zeros(cin, F32))
-                                base = s * slot_f + (hy * BHW + hx) * sin
-                                s_in[base: base + cin] = v
+                        if act:  # halo pixel (hy, hx) is x[y0+hy-1, x0+hx-1]
+                            slot_rows[s, :, :, :cin] = \
+                                xpad[img, y0:y0 + BHW, x0:x0 + BHW]
                 prefetch = resident and db and jt + 1 < NT and \
                     r + 1 == rounds
                 acc = None
@@ -315,14 +311,17 @@ def model_launch(x, w, bias, *, bb, ct, db, rung):
                     acc = part if tap == 0 else (acc + part).astype(F32)
                     if prefetch:  # tap t of slice jt + 1 over tap t
                         stage(tap * cin, (tap + 1) * cin, jt + 1)
-                for th in range(threads):  # the thread's stores
-                    img, y0, x0, act = origin(r * BSLOTS + slot[th])
-                    if not act:
-                        continue
-                    cols = jt * ct + col[th]
-                    for m in range(BTM):
-                        pre[img, y0 + row[th], x0 + m, cols] = acc[th, m]
-                        writes[img, y0 + row[th], x0 + m, cols] += 1
+                # each thread's stores: its slot row, BTM pixels by its
+                # tnb register columns
+                img, y0, x0, act = (np.array(v) for v in zip(*(
+                    origin(r * BSLOTS + sl) for sl in range(BSLOTS))))
+                th = np.nonzero(act[slot])[0]
+                idx = (img[slot[th]][:, None, None],
+                       (y0[slot[th]] + row[th])[:, None, None],
+                       (x0[slot[th]][:, None] + m_[None, :])[:, :, None],
+                       (jt * ct + col[th])[:, None, :])
+                pre[idx] = acc[th]
+                np.add.at(writes, idx, 1)
     out = norm_relu(pre.reshape(-1, C), bias).reshape(pre.shape)
     return pre, out, writes
 

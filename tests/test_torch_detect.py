@@ -9,6 +9,13 @@ within 1e-4 * (1 + max|logit|); ``message_bits`` / ``ok`` /
 the RS outputs are exactly equal on every row when both decoders are
 fed the same bits.  The head bias carries a codeword with one symbol
 error, so some rows decode (ok, n_corrected 1) and others fail.
+
+The reference's device RS engine is ``jax_rs``'s batched decoder here
+(patched in for the module's JAX pipeline), which the JAX package's own
+tests hold bit-equal to its Pallas RS kernel and which compiles in a
+second instead of about fifteen; ``tests/test_torch_rs.py`` holds the
+port's RS to the Pallas kernel itself.  Nothing in the JAX package
+changes.
 """
 import jax
 import jax.numpy as jnp
@@ -16,10 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import stages as jstages
 from repro.core.detect import DetectionConfig as JConfig
 from repro.core.detect import DetectionPipeline as JPipeline
+from repro.core.rs import jax_rs
 from repro_torch.core import extractor as ex
-from repro_torch.core import prng
+from repro_torch.core import prng, stages
 from repro_torch.core.detect import (DetectionConfig, DetectionPipeline,
                                      binomial_threshold, verify_against_key)
 from repro_torch.core.rs import codec
@@ -53,7 +62,9 @@ def runs():
     """Three batches through both pipelines: two on the default key
     sequence, one with an explicit key."""
     p = _params()
-    jpipe = JPipeline(JConfig(**SMALL), jax.tree.map(jnp.asarray, p))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jstages, "make_device_rs", jax_rs.make_batch_decoder)
+        jpipe = JPipeline(JConfig(**SMALL), jax.tree.map(jnp.asarray, p))
     tpipe = DetectionPipeline(DetectionConfig(**SMALL),
                               ex.params_from_numpy(p), device="cpu")
     out = []
@@ -128,8 +139,10 @@ def test_rows_independent_of_batch():
 _CODE11 = codec.RSCode(m=4, n=15, k=11)
 
 
-# The case ids stay fixed from slice to slice: a case whose configuration
-# has been ported is pointed at one that still is not, under its old id.
+# The case ids stay fixed from slice to slice.  Every configuration here
+# was once outside the ported slices (the id names the ROADMAP item it
+# waited for); the serving cache's fields, item 13, were the last, and
+# each case now builds: check_config checks their range only.
 @pytest.mark.parametrize("knob,item", [
     pytest.param(dict(mode="tiled", code=_CODE11, cache_exact=True),
                  "item 13", id="knob0-item 8"),
@@ -153,9 +166,21 @@ _CODE11 = codec.RSCode(m=4, n=15, k=11)
                  id="knob7-item 10"),
     (dict(cache_exact=True), "item 13")])
 def test_unported_config_raises(knob, item):
-    with pytest.raises(NotImplementedError, match=item):
-        DetectionPipeline(DetectionConfig(**SMALL, **knob), _params(),
-                          device="cpu")
+    """The serving cache's fields (ported in ``item``) are accepted with
+    every mode, code, ingest, rung and escalation setting, and passed
+    through untouched; out of range they still raise ``ValueError``."""
+    import dataclasses
+    assert item == "item 13"
+    pipe = DetectionPipeline(DetectionConfig(**SMALL, **knob), _params(),
+                             device="cpu")
+    for k, v in knob.items():
+        assert getattr(pipe.stages.cfg, k) == v, k
+    pipe.close()
+    for bad, match in ((dict(cache_embedding_threshold=1.5), "threshold"),
+                       (dict(cache_capacity=0), "capacit")):
+        with pytest.raises(ValueError, match=match):
+            stages.check_config(dataclasses.replace(
+                DetectionConfig(**SMALL, **knob), **bad))
 
 
 def test_config_defaults_match_reference():

@@ -456,8 +456,20 @@ def test_escalation_round_payloads_equal_escalate_round_summed():
         msg, ok, ncorr = st.rs_correct(st.bits(want))
         assert torch.equal(p["msg"], msg) and torch.equal(p["ok"], ok)
         assert "tiles_used" not in p
-    with pytest.raises(NotImplementedError, match="item 13"):
-        st.build_stages({}, emit_embed=True)
+    # emit_embed: round 0 also carries the GAP embedding, its logits
+    # bitwise the embed-free graph's; round r > 0 payloads carry none
+    emb = LaneExecutor(st.build_stages({"decode": 2}, escalate_inline=False,
+                                       emit_embed=True)).map(
+        [{"raw": raw.numpy(), "keys": keys},
+         {"raw": raw.numpy(), "keys": keys, "round": 1,
+          "acc_logits": acc.numpy()}])
+    x = st.ingest_keyed(raw, keys)
+    want, g = st.decode_keyed_embed(x, keys)
+    assert torch.equal(emb[0]["logits"], st.decode_keyed(x, keys))
+    assert torch.equal(emb[0]["logits"], want)
+    assert torch.equal(emb[0]["embed"], g) and g.shape == (4, 60)
+    assert "embed" not in emb[1]
+    assert torch.equal(emb[1]["logits"], outs[0]["logits"])
 
 
 def test_service_mode_stage_graph_equals_serial():

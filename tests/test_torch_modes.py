@@ -15,9 +15,11 @@ tile-first paths, rows fail.
 The JAX pipeline runs its staged engine (``fused_keyed`` set to None,
 so ``detect_batch`` goes ingest -> decode -> ``rs_correct``; the
 reference holds its fused fast path bitwise equal to that), and its
-``make_device_rs`` is memoized per code for this module, so the Pallas
-RS kernel compiles once (about 12 s in interpret mode) instead of once
-per configuration.  Nothing in the JAX package changes.
+``make_device_rs`` is ``jax_rs``'s batched decoder, memoized per code
+for this module: the JAX package's own tests hold it bit-equal to its
+Pallas RS kernel, which compiles in about 15 s in interpret mode where
+``jax_rs`` takes a second (``tests/test_torch_rs.py`` holds the port's
+RS to the Pallas kernel itself).  Nothing in the JAX package changes.
 """
 import jax
 import jax.numpy as jnp
@@ -29,6 +31,7 @@ from repro.core import stages as jstages
 from repro.core import tiling as jtiling
 from repro.core.detect import DetectionConfig as JConfig
 from repro.core.detect import DetectionPipeline as JPipeline
+from repro.core.rs import jax_rs
 from repro_torch.core import extractor as ex
 from repro_torch.core import tiling
 from repro_torch.core.detect import DetectionConfig, DetectionPipeline
@@ -73,12 +76,11 @@ def _raw(seed, b=6):
 @pytest.fixture(scope="module")
 def shared_device_rs():
     made = {}
-    original = jstages.make_device_rs
 
     def memo(code):
         key = (code.m, code.n, code.k)
         if key not in made:
-            made[key] = original(code)
+            made[key] = jax_rs.make_batch_decoder(code)
         return made[key]
 
     with pytest.MonkeyPatch.context() as mp:
