@@ -115,10 +115,25 @@ In order, it
    ``detect_batch``; and ``python -m repro_torch.launch.serve --online``
    at its defaults, at full width under open-loop load, and with the
    caches and escalation on a Zipf pool;
-9. checks the default and the staged path, and the bf16 and int8 rungs,
+9. drives the fleet at full width (``phase_fleet``): a seeded stream of
+   100 requests through two replicas sharing the card behind the
+   ``FleetRouter``, each equal to one ``DetectionServer``'s result bit
+   for bit, the main-path kernels' launches counted over the run, with
+   requests/s, images/s and latency percentiles; a rolling reconfigure
+   under traffic with no drop; the stream again with one replica crashed
+   after admission, resolved through its sibling; and ``python -m
+   repro_torch.launch.serve --fleet --replicas 2`` at its defaults;
+10. drives the training stage at ``ExtractorTrainConfig()``'s widths
+   (``phase_train``): one step's loss and gradients on the card against
+   the CPU (a TF32 matmul would miss the tolerance), 20 steps with ms a
+   step, ``evaluate`` on the card through the decode and RS kernels
+   (launches counted), the decode kernels at hidden widths 8, 24 and 64
+   at every rung against their plain versions with blocked equal to flat
+   on every schedule, and a few LDM pretrain and fine-tune steps;
+11. checks the default and the staged path, and the bf16 and int8 rungs,
    against the JAX package's golden outputs
    (``tests/data/torch_port_golden.npz``);
-10. prints one ``{"kernels": [...]}`` line and, last, the status line.
+12. prints one ``{"kernels": [...]}`` line and, last, the status line.
 
 Every failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available or when
@@ -133,6 +148,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -514,7 +530,10 @@ def blocked_kernels(dev, rng, card: str, regs: dict, dtype: str) -> dict:
         family += fx.conv_kernel_name(rung, C, C, C).split("<")[1].split(
             ",")[0] + ","
     every = {k: v for k, v in regs.items() if family in k.replace(" ", "")}
-    check(len(every) == 24 and all(v[1:] == (0, 0, 0, 0)
+    # one instantiation per (cout, ct, cin 3 or cout) the sources build
+    n_inst = sum(2 * len(fx.blocked_channel_tiles(c))
+                 for c in fx.HIDDEN_CHANNELS)
+    check(len(every) == n_inst and all(v[1:] == (0, 0, 0, 0)
                                    for v in every.values()),
           f"{dtype} blocked conv: {len(every)} instantiations, spills or "
           f"stack in {[k for k, v in every.items() if any(v[1:])]}")
@@ -2894,6 +2913,392 @@ def phase_online(batches, card: str, dev: str = "cuda") -> dict:
     return out
 
 
+# -- phase 9: the fleet ----------------------------------------------------
+FLEET_REQUESTS = 100     # the seeded request stream the fleet serves
+FLEET_REPLICAS = 2       # replicas sharing the card, each with its streams
+FLEET_CRASH_AT = 10      # r0 crashes after admitting its 11th request
+FLEET_ROLL = {"ingest": 1, "decode": 2, "rs": 1}   # the roll's lane map
+FLEET_ROLL_REQUESTS = 40  # requests resent while the roll runs
+
+
+def fleet_router(cfg, params, dev: str, plans=None):
+    """FLEET_REPLICAS replicas (replica i on ``fleet_devices``' device i:
+    all on the one card) behind a FleetRouter, not yet warmed or
+    started."""
+    from repro_torch.launch.serve import fleet_devices
+    from repro_torch.serving import BatcherConfig, FleetRouter, Replica
+    devs = fleet_devices(FLEET_REPLICAS, dev)
+    return FleetRouter([Replica(
+        f"r{i}", cfg, params, batcher=BatcherConfig(
+            max_batch=ONLINE_MAX_BATCH, max_wait_ms=ONLINE_WAIT_MS),
+        fault_plan=(plans or {}).get(f"r{i}"), device=devs[i])
+        for i in range(FLEET_REPLICAS)])
+
+
+def fleet_run(router, reqs, gaps, keys):
+    """The stream through a started router at its gaps: (results,
+    handles, wall s); every handle resolved and the router drained."""
+    hs = []
+    t0 = time.perf_counter()
+    for r, g, k in zip(reqs, gaps, keys):
+        hs.append(router.submit(r, key=k))
+        if g:
+            time.sleep(g)
+    results = [h.result(300) for h in hs]
+    wall = time.perf_counter() - t0
+    check(router.drain(60), "fleet: a request was left unresolved")
+    return results, hs, wall
+
+
+def fleet_hold(results, want, label: str):
+    for i, (g, w) in enumerate(zip(results, want)):
+        check(result_hash([g]) == result_hash([w]),
+              f"fleet {label}: request {i} differs from one "
+              f"DetectionServer's result")
+
+
+def fleet_runs(router) -> int:
+    """Runs of a micro-batch over the fleet's replicas (micro-batches
+    plus straggler retries): one launch of each main-path kernel each."""
+    return sum(s.get("batch_images", {}).get("n", 0) +
+               s["straggler_retries"]
+               for s in (r.stats() for r in router._replicas.values()))
+
+
+def phase_fleet(batches, card: str, dev: str = "cuda") -> dict:
+    """The fleet at full width (C 64, D 7, 60 bits, tile 64, img 256, raw
+    288): a seeded stream of FLEET_REQUESTS requests of 1 to 8 images
+    through FLEET_REPLICAS replicas on the card behind the FleetRouter,
+    each request equal to one DetectionServer's result bit for bit; the
+    main-path kernels' launches counted over the run; a rolling
+    reconfigure under traffic with no drop; the stream again with r0
+    crashed after admission, every request resolved through its
+    sibling; ``serve --fleet --replicas 2`` at its defaults."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import synth_image
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.serving import AdmissionError, FaultPlan
+    t_phase = time.perf_counter()
+    cfg, params = serve_lib.build_config(serve_lib.parse_args(
+        [*LANE_ARGS, "--device", dev]))
+    reqs, gaps = online_stream(np.concatenate(list(batches)),
+                               FLEET_REQUESTS, seed=3)
+    keys = [prng.key(20_000 + i) for i in range(len(reqs))]
+    n_img = sum(r.shape[0] for r in reqs)
+    sample = synth_image(0, RAW)
+    srv = online_server(cfg, params, dev)
+    srv.warmup(sample)
+    srv.start()
+    try:
+        want = online_submit(srv, reqs, gaps, keys)[0]
+    finally:
+        srv.close()
+    out = {"requests": len(reqs), "images": n_img,
+           "replicas": FLEET_REPLICAS}
+
+    router = fleet_router(cfg, params, dev)
+    try:
+        router.warmup(sample)
+        router.start()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        router.metrics.reset()
+        results, hs, wall = fleet_run(router, reqs, gaps, keys)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        runs = fleet_runs(router)
+        st = router.stats()
+        fleet_hold(results, want, f"{FLEET_REPLICAS} replicas")
+        served = sorted({h.replica for h in hs})
+        check(len(served) == FLEET_REPLICAS,
+              f"fleet: the stream reached only {served}")
+        check(st["reroutes"] == 0 and st["unhealthy"] == 0 and
+              st["counters"].get("requests_failed", 0) == 0,
+              f"fleet: a healthy run rerouted or failed: {st}")
+        check(runs > 0 and all(counts[k] == runs for k in ONLINE_KERNELS)
+              and sum(counts.values()) == runs * len(ONLINE_KERNELS),
+              f"fleet: launches {counts} for {runs} micro-batch runs")
+        lat = st.get("request_latency_s", {})
+        out["stream"] = {
+            "requests_s": len(reqs) / wall, "images_s": n_img / wall,
+            "latency_ms": {q: lat.get(q, float("nan")) * 1e3
+                           for q in ("p50", "p95", "p99", "mean")},
+            "reroutes": st["reroutes"], "spillovers": st["spillovers"],
+            "micro_batch_runs": runs, "launches": counts,
+            "by_replica": {n: sum(h.replica == n for h in hs)
+                           for n in served}}
+        print(f"fleet of {FLEET_REPLICAS} on one card: {len(reqs)} "
+              f"requests ({n_img} images) == one DetectionServer; "
+              f"{out['stream']['requests_s']:.1f} requests/s, "
+              f"{out['stream']['images_s']:.1f} images/s, latency ms "
+              f"{out['stream']['latency_ms']}, reroutes {st['reroutes']}, "
+              f"{runs} micro-batch runs, launches {counts}, on {card}")
+
+        # the roll under traffic: the stream's first half resent at once
+        # (queued on both replicas when the roll starts), the second half
+        # while it runs
+        half = FLEET_ROLL_REQUESTS // 2
+        handles = [(i, router.submit(reqs[i], key=keys[i]))
+                   for i in range(half)]
+        refused = []
+
+        def pump():
+            for i in range(half, FLEET_ROLL_REQUESTS):
+                try:
+                    handles.append((i, router.submit(reqs[i],
+                                                     key=keys[i])))
+                except AdmissionError as e:
+                    refused.append(e)
+                time.sleep(0.001)
+
+        t = threading.Thread(target=pump, daemon=True)
+        queued = sum(not h.done() for _, h in handles)
+        t0 = time.perf_counter()
+        t.start()
+        applied = router.rolling_reconfigure(FLEET_ROLL, drain_timeout=60)
+        roll_s = time.perf_counter() - t0
+        t.join(60)
+        got = [(i, h.result(300)) for i, h in handles]
+        check(not refused and len(got) == FLEET_ROLL_REQUESTS,
+              f"fleet roll: {len(refused)} refused, {len(got)} served")
+        check(applied == {f"r{i}": FLEET_ROLL
+                          for i in range(FLEET_REPLICAS)},
+              f"fleet roll: applied {applied}")
+        fleet_hold([r for _, r in got], [want[i] for i, _ in got], "roll")
+        during = sum(t0 <= h.t_submit <= t0 + roll_s for _, h in handles)
+        out["roll"] = {"seconds": roll_s, "applied": applied,
+                       "requests": len(got), "queued_at_start": queued,
+                       "submitted_during": during, "refused": len(refused)}
+        print(f"fleet rolling reconfigure to {FLEET_ROLL} under traffic: "
+              f"{roll_s * 1e3:.1f} ms, {queued} requests in flight at its "
+              f"start, {during} of {len(got)} submitted during it, none "
+              f"refused, all equal, on {card}")
+    finally:
+        router.close()
+
+    router = fleet_router(cfg, params, dev, plans={
+        "r0": FaultPlan(crash_after_admit=FLEET_CRASH_AT)})
+    try:
+        router.warmup(sample)
+        router.start()
+        results, hs, wall = fleet_run(router, reqs, gaps, keys)
+        st = router.stats()
+    finally:
+        router.close()
+    fleet_hold(results, want, "r0 crashed")
+    rerouted = [h for h in hs if h.reroutes]
+    check(st["reroutes"] >= 1 and st["unhealthy"] == 1 and rerouted and
+          all(h.replica == "r1" for h in rerouted) and
+          st["counters"].get("requests_failed", 0) == 0,
+          f"fleet crash: {st['reroutes']} reroutes, {st['unhealthy']} "
+          f"unhealthy, {len(rerouted)} rerouted handles")
+    out["crash"] = {"reroutes": st["reroutes"],
+                    "unhealthy": st["unhealthy"],
+                    "requests_s": len(reqs) / wall}
+    print(f"fleet with r0 crashed after admission: {st['reroutes']} "
+          f"re-executions on r1, every request equal, on {card}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_lib.main(["--fleet", "--replicas", "2", "--device", dev,
+                        "--compilation-cache", str(OUT / "compile_cache")])
+    text = buf.getvalue()
+    lines = text.split("\n", 2)
+    check(lines[0].startswith("compilation cache:") and
+          lines[1].startswith("fleet: 2 replicas"),
+          f"serve --fleet: {text[:300]}")
+    rep = json.loads(lines[2])
+    check(rep["failed"] == 0 and rep["unresolved"] == 0 and
+          rep["completed"] == rep["offered"] - rep["rejected"] and
+          rep["devices"] == ["cuda:0", "cuda:0"],
+          f"serve --fleet: report {rep}")
+    out["launcher"] = rep
+    print(f"serve --fleet --replicas 2: {json.dumps(rep)} on {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- phase 10: training ---------------------------------------------------
+TRAIN_STEPS = 20          # steps of the card's training run
+TRAIN_EVAL_IMAGES = 64
+TRAIN_EVAL_ATTACKS = ("none", "jpeg_50", "blur")
+TRAIN_GRAD_RTOL = 1e-3    # a leaf's gradient, card vs CPU, of its max
+TRAIN_LOSS_RTOL = 1e-5
+WIDTH_GEO = dict(n_bits=60, depth=4, tile=32)   # the trainer's extractor
+WIDTHS = (8, 24, 64)      # 8 and 24 newly built; 64 beside them
+
+
+def decode_widths(dev, rng, card: str) -> dict:
+    """The decode kernels at hidden widths 8 and 24 (and 64 beside
+    them), the trainer's geometry (tile 32, depth 4): flat at every rung
+    against its plain version at b 32 and a ragged 5, blocked on every
+    candidate schedule and channel tile against its plain version and
+    bit for bit against flat; call ms of both and the plain versions,
+    bound at the rung's peak."""
+    import torch
+    from repro_torch.core.extractor import (init_extractor_numpy,
+                                            pack_params, params_from_numpy)
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import fused_extractor as fx
+    out = {}
+    for C in WIDTHS:
+        p = params_from_numpy(init_extractor_numpy(
+            2, channels=C, bias_scale=0.1, **WIDTH_GEO), dev)
+        l = WIDTH_GEO["tile"]
+        scheds = {s.to_string(): s
+                  for s in at.candidate_schedules(32, C, "cuda")}
+        for ct in fx.blocked_channel_tiles(C):
+            s = at.Schedule(2, ct, True)
+            scheds[s.to_string()] = s
+        rec = {}
+        for dtype in ("fp32", *RUNGS):
+            pk = pack_params(p, dtype)
+            err, berr = 0.0, 0.0
+            for b in (32, 5):
+                tiles = torch.as_tensor(rng.uniform(
+                    -2.0, 2.5, (b, l, l, 3)).astype(np.float32)).to(dev)
+                flat = fx.fused_extractor_cuda(tiles, pk, with_embed=True)
+                want = fx.fused_extractor_plain(tiles, pk, with_embed=True)
+                for g, w in zip(flat, want):
+                    w = w.cpu().numpy()
+                    e = float(np.abs(g.cpu().numpy() - w).max())
+                    tol = logit_tol(w) if dtype == "fp32" else RUNG_ATOL
+                    check(np.isfinite(e) and e <= tol,
+                          f"width {C} {dtype} flat b={b}: max |err| {e} > "
+                          f"{tol}")
+                    err = max(err, e)
+                if b != 32:
+                    continue
+                main = tiles
+                for name, s in scheds.items():
+                    kw = dict(batch_block=s.batch_block,
+                              channel_tile=s.channel_tile,
+                              double_buffer=s.double_buffer, with_embed=True)
+                    got = fx.fused_extractor_blocked_cuda(tiles, pk, **kw)
+                    bw = fx.fused_extractor_blocked_plain(tiles, pk, **kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got[0], flat[0]) and
+                          torch.equal(got[1], flat[1]),
+                          f"width {C} {dtype} blocked {name} != flat")
+                    e = float((got[0] - bw[0]).abs().max())
+                    check(e <= (logit_tol(bw[0].cpu().numpy())
+                                if dtype == "fp32" else RUNG_ATOL),
+                          f"width {C} {dtype} blocked {name}: |err| {e}")
+                    berr = max(berr, e)
+            times = timings(lambda: fx.fused_extractor_cuda(main, pk),
+                            lambda: fx.fused_extractor_plain(main, pk))
+            bound_ms, by = decode_bound(pk, main, dtype)
+            rec[dtype] = dict(max_abs_err=err, blocked_max_abs_err=berr,
+                              schedules=len(scheds), bound_ms=bound_ms,
+                              bound_by=by, **times)
+            print(f"decode width {C} {dtype}: flat {times['ms']:.4f} ms, "
+                  f"plain {times['plain_ms']:.4f} ms, bound "
+                  f"{bound_ms:.3g} ms ({by}) at b=32, l=32, depth 4; max "
+                  f"|err| {err:.3g}; {len(scheds)} blocked schedules == "
+                  f"flat bit for bit, |err| vs plain {berr:.3g}; on {card}")
+        out[str(C)] = rec
+    return out
+
+
+def phase_train(dev, rng, card: str) -> dict:
+    """Training at ``ExtractorTrainConfig()``'s widths (tile 32, 128^2
+    images, channels 24, depth 4, encoder 24 / 3, batch 32): one step's
+    loss and gradients on the card against the CPU (every training
+    attack in the batch); TRAIN_STEPS steps on the card, ms a step;
+    ``evaluate`` on the card through the decode and RS kernels (their
+    launches counted over it) against the CPU's; the decode kernels at
+    widths 8 and 24; a few LDM pretrain and fine-tune steps."""
+    import dataclasses
+    import torch
+    from repro_torch.core import extractor as ex
+    from repro_torch.core import ldm, prng
+    from repro_torch.core import train_extractor as te
+    from repro_torch.kernels import ops
+    from repro_torch.train import optimizer as opt_lib
+    t_phase = time.perf_counter()
+    cfg = te.ExtractorTrainConfig()
+    pn = ex.params_to_numpy(te.init_train_params(cfg))
+    tiles = te.batch_tiles(cfg, 0, prng.key(1))
+    msgs = prng.randint(prng.key(2), (cfg.batch, 60), 0, 2)
+    idx = (torch.arange(cfg.batch) % len(cfg.train_attacks)).to(torch.int32)
+    loss_fn = te.make_loss_fn(cfg)
+    res = {d: te.value_and_grad(loss_fn, ex.params_from_numpy(pn, d),
+                                tiles.to(d), msgs.to(d), idx.to(d))
+           for d in ("cpu", dev)}
+    (lc, _), gc = res["cpu"]
+    (lg, _), gg = res[dev]
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    grad_rel = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(
+        min=1e-30)) for a, b in zip(opt_lib.tree_leaves(gg),
+                                    opt_lib.tree_leaves(gc)))
+    check(loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_RTOL,
+          f"train step card vs CPU: loss rel {loss_rel:.3g} (limit "
+          f"{TRAIN_LOSS_RTOL}), gradients rel {grad_rel:.3g} (limit "
+          f"{TRAIN_GRAD_RTOL}): TF32 or a wrong kernel")
+    out = {"step_vs_cpu": {"loss": float(lg), "loss_rel_err": loss_rel,
+                           "grad_rel_err": grad_rel}}
+    print(f"train step at ExtractorTrainConfig() widths, every attack in "
+          f"the batch: loss {float(lg):.6f}, card vs CPU loss rel "
+          f"{loss_rel:.3g}, gradients rel {grad_rel:.3g}, on {card}")
+
+    run = te.train(dataclasses.replace(cfg, steps=TRAIN_STEPS),
+                   log_every=1, verbose=False, device=dev, init_params=pn)
+    losses = [r["loss"] for r in run["history"]]
+    walls = [r["wall_s"] for r in run["history"]]
+    check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+          f"train: losses {losses}")
+    step_ms = statistics.median(np.diff(walls)) * 1e3
+    out["run"] = {"steps": TRAIN_STEPS, "losses": losses,
+                  "ms_a_step": step_ms, "wall_s": walls[-1]}
+    print(f"train {TRAIN_STEPS} steps on the card: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {step_ms:.2f} ms a step (median), on {card}")
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ev = te.evaluate(run["params"], cfg, n_images=TRAIN_EVAL_IMAGES,
+                     attacks=TRAIN_EVAL_ATTACKS, device=dev)
+    torch.cuda.synchronize()
+    counts, kcounts = ops.launch_counts(), ops.kernel_launch_counts()
+    n = len(TRAIN_EVAL_ATTACKS)
+    check(counts["fused_extractor"] == n and counts["rs_decode"] == n and
+          sum(counts.values()) == 2 * n,
+          f"evaluate: launches {counts}")
+    check(kcounts.get("conv_regtile_kernel<qr::RF32,24,24>") == 3 * n and
+          kcounts.get("gap_corr_regtile_kernel<qr::RF32,24>") == n,
+          f"evaluate: decode kernels {kcounts}")
+    ev_cpu = te.evaluate(ex.params_to_numpy(run["params"]), cfg,
+                         n_images=TRAIN_EVAL_IMAGES,
+                         attacks=TRAIN_EVAL_ATTACKS, device="cpu")
+    for atk in TRAIN_EVAL_ATTACKS:
+        d = abs(ev[atk]["bit_acc"] - ev_cpu[atk]["bit_acc"])
+        check(d <= 0.01, f"evaluate {atk}: bit_acc card "
+              f"{ev[atk]['bit_acc']} vs CPU {ev_cpu[atk]['bit_acc']}")
+    out["evaluate"] = {"card": ev, "cpu": ev_cpu, "launches": counts,
+                       "kernel_launches": kcounts}
+    print(f"evaluate on the card ({TRAIN_EVAL_IMAGES} images, "
+          f"{TRAIN_EVAL_ATTACKS}): {json.dumps(ev)}; launches {counts}; "
+          f"CPU bit_acc {[ev_cpu[a]['bit_acc'] for a in TRAIN_EVAL_ATTACKS]}"
+          f", on {card}")
+
+    out["widths"] = decode_widths(dev, rng, card)
+
+    t0 = time.perf_counter()
+    ae = ldm.pretrain_autoencoder(torch.Generator().manual_seed(0),
+                                  img_size=64, steps=3, batch=8, device=dev)
+    ft = ldm.finetune_decoder(ae, run["params"]["dec"], tile=cfg.tile,
+                              img_size=64, steps=3, batch=4, device=dev)
+    check(all(np.isfinite(h["loss"]) for h in ft.history),
+          f"finetune: {ft.history}")
+    out["finetune"] = {"history": ft.history,
+                       "seconds": time.perf_counter() - t0}
+    print(f"ldm: 3 pretrain and 3 finetune_decoder steps on the card, "
+          f"{ft.history}, {out['finetune']['seconds']:.1f} s, on {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2978,6 +3383,10 @@ def main() -> int:
     t_online = time.perf_counter()
     online = phase_online(batches, card)
     print(f"online phase: {time.perf_counter() - t_online:.1f} s")
+    fleet = phase_fleet(batches, card)
+    print(f"fleet phase: {fleet['seconds']:.1f} s")
+    train = phase_train(dev, rng, card)
+    print(f"train phase: {train['seconds']:.1f} s")
     phase_golden()
     phases["rs_decode"]["device_ms"] = rs_device_ms(dev, rng, card)
 
@@ -3042,6 +3451,22 @@ def main() -> int:
             entry["online_launches_a_micro_batch"] = {
                 dt: online["rungs"][dt]["launches_a_micro_batch"][name]
                 for dt in ("fp32", "int8")}
+            # launches over the fleet's run of its seeded stream
+            entry["fleet_launches"] = fleet["stream"]["launches"][name]
+        if name in ("fused_extractor", "rs_decode"):
+            # launches over the trained pair's evaluate on the card
+            entry["train_evaluate_launches"] = \
+                train["evaluate"]["launches"][name]
+        if name == "fused_extractor":
+            # flat at hidden widths 8, 24 (and 64), every rung, b = 32
+            entry["widths"] = {c: {dt: {k: r[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for dt, r in w.items()} for c, w in train["widths"].items()}
+        if name == "fused_extractor_blocked":
+            entry["widths"] = {c: {dt: {
+                "max_abs_err": r["blocked_max_abs_err"],
+                "schedules_bitwise_flat": r["schedules"]}
+                for dt, r in w.items()} for c, w in train["widths"].items()}
         if name in ("fused_tile_preprocess", "fused_extractor",
                     "rs_decode"):
             # each counted run of the escalation path: one launch a
@@ -3088,7 +3513,8 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phases": phases,
          "rungs": rungs, "window_ips": window_ips, "configs": configs,
-         "escalation": escalation, "lanes": lanes, "online": online},
+         "escalation": escalation, "lanes": lanes, "online": online,
+         "fleet": fleet, "train": train},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,11 @@
-"""Tile extractor H_D, decode half (counterpart of
+"""Tile extractor H_D and watermark encoder H_E (counterpart of
 ``repro.core.extractor``).
+
+The encoder (:func:`init_encoder`, :func:`encoder_forward`) and the
+plain convs of training (:func:`conv2d`, :func:`_block`,
+:func:`highpass`) run as plain PyTorch ops under autograd, the convs as
+tap matmuls: the reference trains through XLA's plain forward, and no
+decode kernel has a backward.
 
 The parameter tree keeps the JAX package's structure and layouts (NHWC
 activations, HWIO conv weights), so weights cross between the two as
@@ -34,6 +40,8 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.transforms import clip
 
 DECODE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
                  "int8": torch.int8}
@@ -91,11 +99,13 @@ def pattern_bank(gen, n_bits: int, tile: int, device="cpu"):
 
 def init_extractor(gen: torch.Generator, *, n_bits: int,
                    channels: int = 64, depth: int = 7, tile: int = 0,
-                   device="cpu") -> dict:
+                   patterns: torch.Tensor = None, device="cpu") -> dict:
     """Randomly initialised extractor with the reference's structure
     and scales (``repro.core.extractor.init_extractor``).  The values
     come from ``gen``, a ``torch.Generator``, so they differ from JAX's
-    for the same seed; tests hand both packages numpy weights instead."""
+    for the same seed; tests hand both packages numpy weights instead.
+    ``patterns`` ties the correlation bank to an encoder's pattern bank
+    (the trainer's warm start); without it the bank is drawn."""
     blocks, cin = [], 3
     for _ in range(depth):
         blocks.append({"w": conv_init(gen, 3, 3, cin, channels,
@@ -111,7 +121,8 @@ def init_extractor(gen: torch.Generator, *, n_bits: int,
                  "b": torch.zeros(n_bits, device=device)},
     }
     if tile:
-        p["corr"] = pattern_bank(gen, n_bits, tile, device)
+        p["corr"] = (pattern_bank(gen, n_bits, tile, device)
+                     if patterns is None else patterns.clone().to(device))
         p["corr_scale"] = torch.ones(n_bits, device=device)
     return p
 
@@ -363,3 +374,124 @@ def extractor_forward_embed(params: dict, tiles: torch.Tensor):
     near-duplicate cache's probe), on the packed body, so its logits are
     bitwise :func:`extractor_forward`'s."""
     return extractor_forward_packed_embed(pack_params(params), tiles)
+
+
+# ---------------------------------------------------------------------------
+# encoder H_E and the plain convs of training (autograd through plain ops)
+# ---------------------------------------------------------------------------
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """``lax.conv_general_dilated`` at NHWC / HWIO, stride 1, SAME
+    padding (the extra row and column after, for even kernels): x (b, h,
+    w, cin), w (kh, kw, cin, cout) -> (b, h, w, cout), the kh * kw tap
+    matmuls summed in row-major tap order.  Matmuls, not a convolution
+    library: their float32 precision is the caller's matmul precision
+    (TF32 only where the caller has allowed it), never cuDNN's TF32
+    default for convolutions."""
+    if stride != 1 or padding != "SAME":
+        raise ValueError("conv2d takes stride 1 and SAME padding")
+    kh, kw = w.shape[0], w.shape[1]
+    h, wd = x.shape[1], x.shape[2]
+    top, left = (kh - 1) // 2, (kw - 1) // 2
+    xp = F.pad(x, (0, 0, left, kw - 1 - left, top, kh - 1 - top))
+    acc = None
+    for dy in range(kh):
+        for dx in range(kw):
+            y = xp[:, dy: dy + h, dx: dx + wd, :] @ w[dy, dx]
+            acc = y if acc is None else acc + y
+    return acc
+
+
+def _block(params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = conv2d(x, params["w"]) + params["b"]
+    return torch.relu(channel_norm(x))
+
+
+def highpass(x: torch.Tensor) -> torch.Tensor:
+    """Remove the local 3x3 mean (a depthwise box filter, zero
+    padding): image content is low-frequency, the spread-spectrum
+    watermark is white."""
+    return x - _box3x3(x)
+
+
+def init_encoder(gen: torch.Generator, *, n_bits: int, channels: int = 32,
+                 depth: int = 4, tile: int = 0, device="cpu") -> dict:
+    """Randomly initialised encoder with the reference's structure and
+    scales (``repro.core.extractor.init_encoder``), values from ``gen``."""
+    blocks, cin = [], 3
+    for _ in range(depth):
+        blocks.append({"w": conv_init(gen, 3, 3, cin, channels,
+                                      device=device),
+                       "b": torch.zeros(channels, device=device)})
+        cin = channels
+    p = {
+        "blocks": blocks,
+        # input: features + broadcast message + original image
+        "fuse": {"w": conv_init(gen, 3, 3, channels + n_bits + 3, channels,
+                                device=device),
+                 "b": torch.zeros(channels, device=device)},
+        "out": {"w": conv_init(gen, 1, 1, channels, 3, scale=0.02,
+                               device=device),
+                "b": torch.zeros(3, device=device)},
+    }
+    if tile:
+        p["patterns"] = pattern_bank(gen, n_bits, tile, device)
+    return p
+
+
+def init_encoder_numpy(seed: int, *, n_bits: int, channels: int = 32,
+                       depth: int = 4, tile: int = 0) -> dict:
+    """:func:`init_encoder`'s structure and scales drawn by numpy from
+    ``seed`` (see :func:`init_extractor_numpy`)."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    blocks, cin = [], 3
+    for _ in range(depth):
+        blocks.append({"w": normal((3, 3, cin, channels),
+                                   (2.0 / (9 * cin)) ** 0.5),
+                       "b": np.zeros((channels,), np.float32)})
+        cin = channels
+    fin = channels + n_bits + 3
+    p = {
+        "blocks": blocks,
+        "fuse": {"w": normal((3, 3, fin, channels), (2.0 / (9 * fin)) ** 0.5),
+                 "b": np.zeros((channels,), np.float32)},
+        "out": {"w": normal((1, 1, channels, 3), 0.02),
+                "b": np.zeros((3,), np.float32)},
+    }
+    if tile:
+        P = rng.standard_normal((n_bits, tile, tile, 3))
+        P -= P.mean(axis=(1, 2, 3), keepdims=True)
+        P /= np.sqrt(np.sum(P * P, axis=(1, 2, 3), keepdims=True))
+        p["patterns"] = P.astype(np.float32)
+    return p
+
+
+def encoder_forward(params: dict, tiles: torch.Tensor,
+                    messages: torch.Tensor, *, alpha: float = 1.0,
+                    embed_rms: float = 0.06):
+    """tiles (b, l, l, 3), messages (b, n) in {0, 1} -> (watermarked
+    tiles, residual delta).  The residual is power-normalised to
+    ``embed_rms`` per sample before the alpha scale; the result is
+    clipped to [-1, 1] as ``jnp.clip`` clips."""
+    b, l = tiles.shape[0], tiles.shape[1]
+    x = tiles
+    for blk in params["blocks"]:
+        x = _block(blk, x)
+    m = 2.0 * messages.to(torch.float32) - 1.0
+    mb = m[:, None, None, :].expand(b, l, l, m.shape[-1])
+    x = torch.cat([x, mb, tiles], dim=-1)
+    x = _block(params["fuse"], x)
+    delta = conv2d(x, params["out"]["w"]) + params["out"]["b"]
+    if "patterns" in params:
+        # spread-spectrum pathway: delta += sum_i mtilde_i * P_i
+        delta = delta + torch.einsum("bn,nhwc->bhwc", m, params["patterns"])
+    rms = torch.sqrt(torch.mean(torch.square(delta), dim=(1, 2, 3),
+                                keepdim=True) + 1e-8)
+    delta = delta * (embed_rms / rms)
+    return clip(tiles + alpha * delta, -1.0, 1.0), delta

@@ -183,3 +183,13 @@ def escalation_offsets(strategy: str, keys: torch.Tensor, image_hw,
         return torch.cat([col0[:, None, :],
                           _cells_to_offsets(cells, gx, tile)], dim=1)
     raise ValueError(f"unknown tiling strategy {strategy!r}")
+
+
+def grid_partition(images: torch.Tensor, tile: int) -> torch.Tensor:
+    """All non-overlapping l x l tiles: (b, gy * gx, tile, tile, C),
+    row-major over the grid."""
+    b, H, W, C = images.shape
+    gy, gx = H // tile, W // tile
+    x = images[:, : gy * tile, : gx * tile]
+    x = x.reshape(b, gy, tile, gx, tile, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, gy * gx, tile, tile, C)

@@ -15,7 +15,8 @@ as it is, as JAX skips it.  ``F.interpolate`` is not used: its
 antialiasing filter is another one.
 
 The attacks are plain torch ops on (b, h, w, c) float images on the
-caller's device, differentiable as such: crop and resize (through
+caller's device, differentiable as such (the clips split a tie's
+gradient as ``jnp.clip`` does, :func:`clip`): crop and resize (through
 :func:`resize_to`), brightness, contrast, saturation, sharpness, a
 depthwise box blur with zero "SAME" padding, the blockwise 8x8 DCT
 quantisation surrogate of JPEG (edge padding, rounding half to even),
@@ -116,34 +117,48 @@ def attack_resize(images: torch.Tensor, frac: float) -> torch.Tensor:
     return resize_to(resize_to(images, (nh, nw)), (h, w))
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: the same values as ``torch.clamp``, and the
+    gradient of ``minimum(maximum(x, lo), hi)``, which gives half of it
+    to an element exactly at a bound (``torch.clamp`` gives all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)),
+                         x.new_tensor(hi))
+
+
 def attack_brightness(images: torch.Tensor, factor: float) -> torch.Tensor:
-    return torch.clamp(images * factor, -3.0, 3.0)
+    return clip(images * factor, -3.0, 3.0)
 
 
 def attack_contrast(images: torch.Tensor, factor: float) -> torch.Tensor:
     mu = images.mean(dim=(1, 2, 3), keepdim=True)
-    return torch.clamp(mu + (images - mu) * factor, -3.0, 3.0)
+    return clip(mu + (images - mu) * factor, -3.0, 3.0)
 
 
 def attack_saturation(images: torch.Tensor, factor: float) -> torch.Tensor:
     grey = images.mean(dim=-1, keepdim=True)
-    return torch.clamp(grey + (images - grey) * factor, -3.0, 3.0)
+    return clip(grey + (images - grey) * factor, -3.0, 3.0)
 
 
 def attack_sharpness(images: torch.Tensor, factor: float) -> torch.Tensor:
     blur = attack_blur(images)
-    return torch.clamp(blur + (images - blur) * factor, -3.0, 3.0)
+    return clip(blur + (images - blur) * factor, -3.0, 3.0)
 
 
 def attack_blur(images: torch.Tensor, k: int = 3) -> torch.Tensor:
     """Depthwise k x k box filter, zero "SAME" padding (the extra row
-    and column after, for even k, as XLA pads)."""
-    c = images.shape[-1]
-    kern = torch.full((c, 1, k, k), 1.0 / (k * k), dtype=images.dtype,
-                      device=images.device)
+    and column after, for even k, as XLA pads): the k * k shifted views
+    times 1 / k^2, summed in row-major tap order.  Elementwise ops, so
+    no convolution library (and none of its TF32 algorithms) is asked."""
+    h, w = images.shape[1], images.shape[2]
     lo = (k - 1) // 2
-    x = F.pad(images.permute(0, 3, 1, 2), (lo, k - 1 - lo, lo, k - 1 - lo))
-    return F.conv2d(x, kern, groups=c).permute(0, 2, 3, 1)
+    x = F.pad(images, (0, 0, lo, k - 1 - lo, lo, k - 1 - lo))
+    wt = 1.0 / (k * k)
+    acc = None
+    for dy in range(k):
+        for dx in range(k):
+            v = x[:, dy: dy + h, dx: dx + w, :] * wt
+            acc = v if acc is None else acc + v
+    return acc
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,12 @@
-"""Synthetic procedural images for detection runs (numpy copy of
-``repro.data.pipeline.synth_image``, so the port
-never imports the JAX package).  Deterministic given (seed, index)."""
+"""Synthetic procedural images for detection and training runs (numpy
+copies of ``repro.data.pipeline``'s ``synth_image``, ``image_batches``
+and ``ImageShard``, so the port never imports the JAX package).
+Deterministic given (seed, index), so every worker can slice its own
+shard without coordination."""
 from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
 
 import numpy as np
 
@@ -26,3 +31,28 @@ def synth_image(idx: int, size: int = 256, seed: int = 0) -> np.ndarray:
             + alpha * col
     noise = rng.normal(0, 0.02, img.shape)
     return np.clip((img + noise) * 255, 0, 255).astype(np.uint8)
+
+
+def image_batches(n_images: int, batch: int, *, size: int = 256,
+                  seed: int = 0, start: int = 0) -> Iterator[np.ndarray]:
+    for b0 in range(start, start + n_images, batch):
+        n = min(batch, start + n_images - b0)
+        yield np.stack([synth_image(b0 + i, size, seed) for i in range(n)])
+
+
+@dataclasses.dataclass
+class ImageShard:
+    """Deterministic per-worker slice of the image stream."""
+    worker: int
+    n_workers: int
+    batch: int
+    size: int = 256
+    seed: int = 0
+
+    def batches(self, n_batches: int, epoch: int = 0):
+        base = epoch * 1_000_000_000 + self.worker
+        for k in range(n_batches):
+            idx0 = base + k * self.n_workers * self.batch
+            yield np.stack([synth_image(idx0 + i * self.n_workers,
+                                        self.size, self.seed)
+                            for i in range(self.batch)])

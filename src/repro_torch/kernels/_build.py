@@ -9,7 +9,8 @@ seconds rather than the minutes of ``torch.utils.cpp_extension.load``.
 
 The build runs at first use, from the sources in this checkout, into
 ``build/repro_torch_kernels/`` at the repository root (listed in
-``.gitignore``).  The library's file name carries a hash of the sources
+``.gitignore``), or into the directory :func:`use_build_dir` names (the
+serve launcher's ``--compilation-cache``).  The library's file name carries a hash of the sources
 and flags, so an edited source never loads a stale library.  Nothing
 here runs at import time: the CPU tests import every module.
 """
@@ -145,6 +146,20 @@ def build() -> Path:
                       seconds=time.perf_counter() - t0,
                       log="".join(logs))
     return lib_path
+
+
+def use_build_dir(path) -> Path:
+    """Build (and look for) the kernel library in ``path`` instead of
+    ``BUILD_DIR``'s default: a library built there by an earlier process
+    of the same sources is loaded without compiling.  Takes effect only
+    before the library is loaded in this process; returns the directory
+    the loaded (or next) library lives in."""
+    global BUILD_DIR
+    with _lock:
+        if _lib is None:
+            BUILD_DIR = Path(path).resolve()
+            return BUILD_DIR
+        return Path(build_info["path"]).parent
 
 
 def load(path, names=tuple(SIGNATURES)) -> ctypes.CDLL:

@@ -718,7 +718,7 @@ struct Bk {
 
 // Rows [r0, r1) of the packed (9 * cin, COUT) weight, output columns
 // [jt * CT, (jt + 1) * CT), into s_w[r * CT + c] with cp.async: 16-byte
-// chunks (8 bytes for a bf16 row of 4).
+// chunks, or 8-byte ones where a row is not 16n bytes (bf16 ct 4 and 12).
 template <class R, int COUT, int CT>
 __device__ __forceinline__ void stage_rows(const typename R::W* __restrict__ w,
                                            typename R::SW* s_w, int r0, int r1,
@@ -726,9 +726,9 @@ __device__ __forceinline__ void stage_rows(const typename R::W* __restrict__ w,
   using W = typename R::W;
   static_assert(std::is_same<W, typename R::SW>::value, "staged as stored");
   constexpr int ROW = CT * (int)sizeof(W);
-  constexpr int CHUNK = ROW < 16 ? ROW : 16;
+  constexpr int CHUNK = ROW % 16 == 0 ? 16 : 8;
   constexpr int E = CHUNK / (int)sizeof(W);  // weights per chunk
-  static_assert(CHUNK == 8 || CHUNK == 16, "rows of 8 or 16n bytes");
+  static_assert(ROW % 8 == 0, "rows of 8n bytes");
   const int n = (r1 - r0) * (CT / E);
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const int r = r0 + e / (CT / E), q = e % (CT / E);
@@ -975,7 +975,8 @@ inline cudaError_t set_smem(K kernel, size_t bytes) {
 
 // The host side of the fp32 or bf16 rung: each launcher returns
 // cudaGetLastError() of its launch, or cudaErrorInvalidValue for a shape
-// it is not built for (cin in {3, 16, 32, 64}; blocked: cin 3 or cout).
+// it is not built for (cin in {3, 8, 16, 24, 32, 64}; blocked: cin 3 or
+// cout).
 // Members are defined out of the class, so they are not inline and
 // `extern template` keeps a rung's kernels in its own source (so does
 // FlatConv's `any`).  The int8 rung's launchers are in
@@ -1031,7 +1032,9 @@ struct FlatConv {
                      float* out, int b, int l, int cin, cudaStream_t stream) {
     switch (cin) {
       case 3: return rt<COUT, 3>(x, w, bias, out, b, l, stream);
+      case 8: return rt<COUT, 8>(x, w, bias, out, b, l, stream);
       case 16: return rt<COUT, 16>(x, w, bias, out, b, l, stream);
+      case 24: return rt<COUT, 24>(x, w, bias, out, b, l, stream);
       case 32: return rt<COUT, 32>(x, w, bias, out, b, l, stream);
       case 64: return rt<COUT, 64>(x, w, bias, out, b, l, stream);
       default: return (int)cudaErrorInvalidValue;
@@ -1047,7 +1050,9 @@ int FlatConv<R>::any(const float* x, const void* w, const float* bias,
                      float* out, int b, int l, int cin, int cout,
                      cudaStream_t stream) {
   switch (cout) {
+    case 8: return cin_any<8>(x, w, bias, out, b, l, cin, stream);
     case 16: return cin_any<16>(x, w, bias, out, b, l, cin, stream);
+    case 24: return cin_any<24>(x, w, bias, out, b, l, cin, stream);
     case 32: return cin_any<32>(x, w, bias, out, b, l, cin, stream);
     case 64: return cin_any<64>(x, w, bias, out, b, l, cin, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -1090,7 +1095,9 @@ int Extractor<R>::blocked_any(const float* x, const void* w,
 #define QR_BLOCKED(CO, CTV)                                                  \
   if (cout == CO && ct == CTV)                                               \
     return blocked<CO, CTV>(x, w, bias, out, b, l, cin, bb, db, stream);
+  QR_BLOCKED(8, 8) QR_BLOCKED(8, 4)
   QR_BLOCKED(16, 16) QR_BLOCKED(16, 8) QR_BLOCKED(16, 4)
+  QR_BLOCKED(24, 24) QR_BLOCKED(24, 12) QR_BLOCKED(24, 8) QR_BLOCKED(24, 4)
   QR_BLOCKED(32, 32) QR_BLOCKED(32, 16) QR_BLOCKED(32, 8) QR_BLOCKED(32, 4)
   QR_BLOCKED(64, 64) QR_BLOCKED(64, 32) QR_BLOCKED(64, 16) QR_BLOCKED(64, 8)
   QR_BLOCKED(64, 4)
@@ -1109,7 +1116,11 @@ int Extractor<R>::gap_corr(const float* x, const void* w, const float* bias,
   switch (cin) {
     case 3: return gap_corr_rt<3>(x, w, bias, tiles, corr, part_gap,
                                   part_corr, b, l, has_corr, stream);
+    case 8: return gap_corr_rt<8>(x, w, bias, tiles, corr, part_gap,
+                                  part_corr, b, l, has_corr, stream);
     case 16: return gap_corr_rt<16>(x, w, bias, tiles, corr, part_gap,
+                                    part_corr, b, l, has_corr, stream);
+    case 24: return gap_corr_rt<24>(x, w, bias, tiles, corr, part_gap,
                                     part_corr, b, l, has_corr, stream);
     case 32: return gap_corr_rt<32>(x, w, bias, tiles, corr, part_gap,
                                     part_corr, b, l, has_corr, stream);

@@ -14,9 +14,9 @@
 
 using namespace qr;
 
-// fp32 / bf16 (the register-tiled kernel): cout in
-// {16, 32, 64}, cin in {3, 16, 32, 64}, l a multiple of 16; with cin > 3,
-// x and w 16-byte aligned.  The int8 flat conv is qr_conv3x3_imma.
+// fp32 / bf16 (the register-tiled kernel): cout in {8, 16, 24, 32, 64},
+// cin in {3, 8, 16, 24, 32, 64}, l a multiple of 16; with cin > 3, x and
+// w 16-byte aligned.  The int8 flat conv is qr_conv3x3_imma.
 extern "C" int qr_conv3x3_norm_relu(const void* x, const void* w,
                                     const void* bias, void* out, int b, int l,
                                     int cin, int cout, int rung,
@@ -31,7 +31,8 @@ extern "C" int qr_conv3x3_norm_relu(const void* x, const void* w,
   }
 }
 
-// Blocked schedule, fp32 / bf16: cout in {16, 32, 64}, cin 3 or cout, ct
+// Blocked schedule, fp32 / bf16: cout in {8, 16, 24, 32, 64}, cin 3 or
+// cout, ct
 // a multiple of 4 dividing cout, bb >= 1, l a multiple of 16, w 16-byte
 // aligned.  The int8 blocked conv is qr_conv3x3_imma_blocked.
 extern "C" int qr_conv3x3_norm_relu_blocked(const void* x, const void* w,
@@ -52,8 +53,8 @@ extern "C" int qr_conv3x3_norm_relu_blocked(const void* x, const void* w,
 }
 
 // n_bits == 60 (the RS(15,12) GF(16) codeword).  fp32 / bf16: cin in
-// {3, 16, 32, 64}, x and w 16-byte aligned.  corr and part_corr may be
-// null when has_corr is 0.  The int8 to_bits is qr_conv3x3_gap_corr_imma.
+// {3, 8, 16, 24, 32, 64}, x and w 16-byte aligned.  corr and part_corr may
+// be null when has_corr is 0.  The int8 to_bits is qr_conv3x3_gap_corr_imma.
 extern "C" int qr_conv3x3_gap_corr(const void* x, const void* w,
                                    const void* bias, const void* tiles,
                                    const void* corr, void* part_gap,

@@ -29,7 +29,8 @@
 // Design (one block: a 16x16 pixel tile of one image, 8 warps):
 //   * the tap dot is mma.sync.m16n8k32 s8 x s8 -> s32: M = 16 pixels (one
 //     row of the tile), N = 8 output columns, K = 32 input channels (one
-//     k-step at cin <= 32, two at 64; layer 0's three channels are one
+//     k-step at cin <= 32, two at 64; cin 8 and 24 fill one k-step with zero
+//     words past their own, in the halo; layer 0's three channels are one
 //     word padded with zeros to 32).  Warp w owns pixel rows 2w, 2w + 1
 //     and every column: 2 x COUT / 8 tiles of 16 x 8.  The int32 dot is
 //     exact as the __dp4a chain's was (|dot| <= 64 * 127^2 < 2^22), so
@@ -132,6 +133,14 @@ __device__ __forceinline__ unsigned quant_byte_rcp(float v, float s,
   return (unsigned)(uint8_t)(int8_t)(int)r;
 }
 
+// 8 bytes, or 8 zero bytes when !valid (a halo pixel outside the image)
+__device__ __forceinline__ void cp_async8_zfill(void* smem, const void* gmem,
+                                                bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 8 : 0));
+}
+
 // ---- the tensor-core engine ------------------------------------------------
 constexpr int IT = 16;               // a block's pixel tile is IT x IT
 constexpr int IHW = IT + 2;          // halo side
@@ -219,9 +228,17 @@ __device__ __forceinline__ void imma_halo(const void* __restrict__ x,
       s_sc[p] = in ? sc : 0.f;
     } else {
       const int* xq = static_cast<const int*>(x);
+      if constexpr (G::CW % 4 == 0) {
 #pragma unroll
-      for (int q = 0; q < G::CW / 4; ++q)
-        cp_async16_zfill(hp + 4 * q, in ? xq + gp * G::CW + 4 * q : xq, in);
+        for (int q = 0; q < G::CW / 4; ++q)
+          cp_async16_zfill(hp + 4 * q, in ? xq + gp * G::CW + 4 * q : xq,
+                           in);
+      } else {  // cin 8 or 24: a pixel's words are 8n bytes, copied in pairs
+        static_assert(G::CW % 2 == 0, "an even number of words a pixel");
+#pragma unroll
+        for (int q = 0; q < G::CW / 2; ++q)
+          cp_async8_zfill(hp + 2 * q, in ? xq + gp * G::CW + 2 * q : xq, in);
+      }
       s_sc[p] = in ? xs[gp] : 0.f;
     }
 #pragma unroll
@@ -389,11 +406,12 @@ __device__ __forceinline__ void stage_pre(float* s_pre,
 // channel_norm and ReLU, the operations of `norm_relu_to` in its order
 // (the row held in registers, so (pre + bias) is formed once), then the
 // quantize of `quantize_rows_int8` (its amax as four partial maxima, exact
-// in any order; the bytes by quant_byte_rcp): writes the words to qo,
-// returns the scale.
+// in any order; the bytes by quant_byte_rcp): writes the COUT / 4 words
+// to qo (int4 stores at COUT a multiple of 16, else int2: a pixel's words
+// are then 8n bytes), returns the scale.
 template <int COUT>
 __device__ __forceinline__ float norm_relu_quantize(
-    const float* row, const float* __restrict__ bias, int4* qo) {
+    const float* row, const float* __restrict__ bias, int* qo) {
   float u[COUT];
 #pragma unroll
   for (int co = 0; co < COUT; ++co) u[co] = __fadd_rn(row[co], bias[co]);
@@ -417,17 +435,33 @@ __device__ __forceinline__ float norm_relu_quantize(
   }
   const float sc = quant_scale(fmaxf(fmaxf(am[0], am[1]), fmaxf(am[2], am[3])));
   const float rsc = __frcp_rn(sc);
+  if constexpr (COUT % 16 == 0) {
 #pragma unroll
-  for (int v = 0; v < COUT / 16; ++v) {
-    unsigned w[4];
+    for (int v = 0; v < COUT / 16; ++v) {
+      unsigned w[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      w[k] = 0;
+      for (int k = 0; k < 4; ++k) {
+        w[k] = 0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w[k] |= quant_byte_rcp(u[16 * v + 4 * k + j], sc, rsc) << (8 * j);
+        for (int j = 0; j < 4; ++j)
+          w[k] |= quant_byte_rcp(u[16 * v + 4 * k + j], sc, rsc) << (8 * j);
+      }
+      reinterpret_cast<int4*>(qo)[v] =
+          make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
     }
-    qo[v] = make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+  } else {  // C 8 or 24: the same bytes, two words a store
+#pragma unroll
+    for (int v = 0; v < COUT / 8; ++v) {
+      unsigned w[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        w[k] = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[k] |= quant_byte_rcp(u[8 * v + 4 * k + j], sc, rsc) << (8 * j);
+      }
+      reinterpret_cast<int2*>(qo)[v] = make_int2((int)w[0], (int)w[1]);
+    }
   }
   return sc;
 }
@@ -459,8 +493,8 @@ conv_imma_kernel(const void* __restrict__ x, const float* __restrict__ xs,
   // one thread a pixel
   const int p = threadIdx.x;
   const long long gp = (tl.img * l + tl.y0 + p / IT) * l + tl.x0 + p % IT;
-  s_out[gp] = norm_relu_quantize<COUT>(
-      s_pre + p * SP, bias, reinterpret_cast<int4*>(q_out + gp * (COUT / 4)));
+  s_out[gp] = norm_relu_quantize<COUT>(s_pre + p * SP, bias,
+                                       q_out + gp * (COUT / 4));
 }
 
 constexpr int kToBitsEpi = IT * IT * (60 + 1) * 4 + IT * IT * 3 * 4;
@@ -613,8 +647,7 @@ conv_blocked_imma_kernel(const void* __restrict__ x,
       const long long gp =
           (img * l + y0 + p % (BS * BS) / BS) * l + x0 + p % BS;
       s_out[gp] = norm_relu_quantize<COUT>(
-          s_pre + p * SP, bias,
-          reinterpret_cast<int4*>(q_out + gp * (COUT / 4)));
+          s_pre + p * SP, bias, q_out + gp * (COUT / 4));
     }
   };
   if (two) {
@@ -762,8 +795,8 @@ int conv_blocked_imma(const void* x, const float* xs, const int2* wf,
 // before, with its (b, l, l) scales xs; wf: the layer's weight fragments
 // (9, KS, cout / 8, 32, 2) int32; wscale (cout) fp32.  Writes q
 // (b, l, l, cout / 4) words and s (b, l, l) scales.  cin in
-// {3, 16, 32, 64}, cout in {16, 32, 64}, l a multiple of 16; every
-// pointer 16-byte aligned.
+// {3, 8, 16, 24, 32, 64}, cout in {8, 16, 24, 32, 64}, l a multiple of
+// 16; every pointer 16-byte aligned.
 extern "C" int qr_conv3x3_imma(const void* x, const void* xs, const void* wf,
                                const void* wscale, const void* bias, void* q,
                                void* s, int b, int l, int cin, int cout,
@@ -777,18 +810,20 @@ extern "C" int qr_conv3x3_imma(const void* x, const void* xs, const void* wf,
   if (cin == CI && cout == CO)                                             \
     return qr::conv_imma<CI, CO>(x, xsf, w, sf, bf, (int*)q, (float*)s, b, \
                                  l, st);
-  QR_IMMA(3, 16) QR_IMMA(3, 32) QR_IMMA(3, 64)
-  QR_IMMA(16, 16) QR_IMMA(16, 32) QR_IMMA(16, 64)
-  QR_IMMA(32, 16) QR_IMMA(32, 32) QR_IMMA(32, 64)
-  QR_IMMA(64, 16) QR_IMMA(64, 32) QR_IMMA(64, 64)
+#define QR_IMMA_CIN(CI)                                                    \
+  QR_IMMA(CI, 8) QR_IMMA(CI, 16) QR_IMMA(CI, 24) QR_IMMA(CI, 32)           \
+  QR_IMMA(CI, 64)
+  QR_IMMA_CIN(3) QR_IMMA_CIN(8) QR_IMMA_CIN(16) QR_IMMA_CIN(24)
+  QR_IMMA_CIN(32) QR_IMMA_CIN(64)
+#undef QR_IMMA_CIN
 #undef QR_IMMA
   return (int)cudaErrorInvalidValue;
 }
 
 // One hidden block at int8 on the blocked schedule: x, xs, wf, wscale,
 // bias, q and s as qr_conv3x3_imma's; scratch an fp32 (b, l, l, cout)
-// buffer, used (and required) when ct < cout.  cout in {16, 32, 64}, cin
-// 3 or cout, ct a multiple of 4 dividing cout, bb >= 1, l a multiple of
+// buffer, used (and required) when ct < cout.  cout in {8, 16, 24, 32,
+// 64}, cin 3 or cout, ct a multiple of 4 dividing cout, bb >= 1, l a multiple of
 // 16.
 extern "C" int qr_conv3x3_imma_blocked(const void* x, const void* xs,
                                        const void* wf, const void* wscale,
@@ -812,7 +847,10 @@ extern "C" int qr_conv3x3_imma_blocked(const void* x, const void* xs,
       return qr::conv_blocked_imma<CO, CO, CTV>(x, xsf, w, sf, bf, qi, sp,   \
                                                 scr, b, l, bb, db, st);      \
   }
+  QR_BLOCKED_IMMA(8, 8) QR_BLOCKED_IMMA(8, 4)
   QR_BLOCKED_IMMA(16, 16) QR_BLOCKED_IMMA(16, 8) QR_BLOCKED_IMMA(16, 4)
+  QR_BLOCKED_IMMA(24, 24) QR_BLOCKED_IMMA(24, 12) QR_BLOCKED_IMMA(24, 8)
+  QR_BLOCKED_IMMA(24, 4)
   QR_BLOCKED_IMMA(32, 32) QR_BLOCKED_IMMA(32, 16) QR_BLOCKED_IMMA(32, 8)
   QR_BLOCKED_IMMA(32, 4)
   QR_BLOCKED_IMMA(64, 64) QR_BLOCKED_IMMA(64, 32) QR_BLOCKED_IMMA(64, 16)
@@ -824,7 +862,7 @@ extern "C" int qr_conv3x3_imma_blocked(const void* x, const void* xs,
 // to_bits + GAP + corr at int8 (both schedules): xq / xs the last hidden
 // block's words and scales; wf the to_bits fragments (9, KS, 8, 32, 2)
 // int32 (60 columns padded to 64), wscale (60).  n_bits == 60, cin in
-// {16, 32, 64}; corr and part_corr may be null when has_corr is 0.
+// {8, 16, 24, 32, 64}; corr and part_corr may be null when has_corr is 0.
 extern "C" int qr_conv3x3_gap_corr_imma(const void* xq, const void* xs,
                                         const void* wf, const void* wscale,
                                         const void* bias, const void* tiles,
@@ -841,7 +879,11 @@ extern "C" int qr_conv3x3_gap_corr_imma(const void* xq, const void* xs,
   float *pg = (float*)part_gap, *pc = (float*)part_corr;
   cudaStream_t st = (cudaStream_t)stream;
   switch (cin) {
+    case 8: return qr::gap_corr_imma<8>(q, xsf, w, sf, bf, tf, cf, pg, pc,
+                                        b, l, has_corr, st);
     case 16: return qr::gap_corr_imma<16>(q, xsf, w, sf, bf, tf, cf, pg, pc,
+                                          b, l, has_corr, st);
+    case 24: return qr::gap_corr_imma<24>(q, xsf, w, sf, bf, tf, cf, pg, pc,
                                           b, l, has_corr, st);
     case 32: return qr::gap_corr_imma<32>(q, xsf, w, sf, bf, tf, cf, pg, pc,
                                           b, l, has_corr, st);

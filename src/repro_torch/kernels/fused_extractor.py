@@ -57,7 +57,7 @@ from repro_torch.core.extractor import (extractor_forward_packed_embed,
 from repro_torch.kernels import _build
 
 # instantiations of the CUDA kernels (csrc/extractor.cuh)
-HIDDEN_CHANNELS = (16, 32, 64)
+HIDDEN_CHANNELS = (8, 16, 24, 32, 64)
 N_BITS = (60,)
 # the tile size l is a multiple of PIXEL_TILE on both schedules: the flat
 # kernels' pixel tiles are 16x16, the blocked kernels' regions 8x8 to

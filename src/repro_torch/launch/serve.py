@@ -52,10 +52,22 @@ micro-batches, the exact result cache and dedup-in-flight
 JSON: throughput, latency percentiles, batch occupancy, rejections,
 straggler retries, cache and escalation counters.
 
+``--fleet`` fronts ``--replicas`` ``DetectionServer`` replicas with the
+``FleetRouter`` (rendezvous content routing, spill-over, crash
+re-execution) and drives the same Poisson load through the router
+(:func:`run_fleet`); replica i runs on ``cuda:(i % device_count)``, so
+on one card every replica shares it, each with its own lane streams.
+
+``--compilation-cache DIR`` is the counterpart of the reference's
+persistent jit cache: the port's only compiled artifact is the CUDA
+kernel library, so the flag builds it into (and reuses it from) DIR
+instead of ``build/repro_torch_kernels/`` (``_build.use_build_dir``),
+and puts the autotune cache at ``DIR/decode_schedules.json`` unless
+``--autotune-cache`` names another, as the reference does.  A restart
+with the same DIR and sources loads the library without running
+``nvcc``.
+
 Runs on the card by default; ``--device cpu`` runs the plain versions.
-The reference launcher's fleet and compilation-cache flags
-(``--fleet``, ``--replicas``, ``--compilation-cache``; ROADMAP queue 1
-item 13c) are rejected by argparse as unrecognized, never ignored.
 Offline, prints the ``allocation:`` line of Algorithm 1, then the
 ``ServiceReport`` JSON (with the device it ran on).
 
@@ -70,6 +82,8 @@ Offline, prints the ``allocation:`` line of Algorithm 1, then the
         [--realloc-every N] [--cache-exact] [--cache-embed-threshold X] \
         [--classes interactive:5,bulk:50 --bulk-frac 0.3] \
         [--pool N [--zipf X]] [offline flags...]
+    python -m repro_torch.launch.serve --fleet --replicas 2 --qps 50 \
+        [--compilation-cache DIR] [online and offline flags...]
 """
 from __future__ import annotations
 
@@ -77,6 +91,7 @@ import argparse
 import dataclasses
 import json
 import time
+from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -90,6 +105,7 @@ from repro_torch.core.extractor import (init_extractor, pack_params,
 from repro_torch.core.rs.codec import DEFAULT_CODE
 from repro_torch.core.stages import host_numpy
 from repro_torch.data.pipeline import synth_image
+from repro_torch.kernels import _build
 from repro_torch.kernels import autotune as autotune_lib
 from repro_torch.launch.mesh import make_detection_mesh
 from repro_torch.serving.batcher import AdmissionError, pad_to_bucket
@@ -111,11 +127,9 @@ class ServiceReport:
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Batch detection service (offline) and request-level "
-                    "detection server (--online) on the PyTorch port",
-        epilog="The reference launcher's fleet flags (--fleet, --replicas) "
-               "and --compilation-cache are not ported yet (ROADMAP.md "
-               "queue 1 item 13c) and are rejected as unrecognized.",
+        description="Batch detection service (offline), request-level "
+                    "detection server (--online) and a fleet of servers "
+                    "behind the router (--fleet) on the PyTorch port",
         allow_abbrev=False)
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--batch", type=int, default=32)
@@ -153,8 +167,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "before building the pipeline, persist the "
                          "winner in the autotune cache, and serve with it "
                          "(implies --schedule auto)")
-    ap.add_argument("--autotune-cache", default=DEFAULT_AUTOTUNE_CACHE,
-                    help="schedule-cache JSON path")
+    ap.add_argument("--autotune-cache", default=None,
+                    help="schedule-cache JSON path (default: "
+                         "DIR/decode_schedules.json with "
+                         "--compilation-cache DIR, else "
+                         f"{DEFAULT_AUTOTUNE_CACHE})")
+    ap.add_argument("--compilation-cache", default="",
+                    help="directory the CUDA kernel library is built "
+                         "into and reused from across restarts (the "
+                         "port's compile cache), and the default home "
+                         "of the autotune cache")
     ap.add_argument("--escalate-tiles", type=int, default=1,
                     help="adaptive escalation tile budget per image "
                          "(1 = single-tile fast path only; k > 1 "
@@ -165,6 +187,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "below this margin even when RS succeeded "
                          "(0 = RS-failure trigger only; requires "
                          "--escalate-tiles > 1)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="front --replicas DetectionServer replicas "
+                         "with the FleetRouter (rendezvous content "
+                         "routing, spill-over, crash re-execution) and "
+                         "drive Poisson load through the router")
+    ap.add_argument("--replicas", type=int, default=2,
+                    help="fleet size for --fleet (replica i runs on "
+                         "cuda:(i %% device_count); with --device cpu "
+                         "every replica on the CPU)")
     ap.add_argument("--online", action="store_true",
                     help="request-level serving: DetectionServer + "
                          "open-loop Poisson load instead of the "
@@ -212,7 +243,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "(0 = every request distinct)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.autotune_cache is None:
+        args.autotune_cache = (
+            str(Path(args.compilation_cache) / "decode_schedules.json")
+            if args.compilation_cache else DEFAULT_AUTOTUNE_CACHE)
+    return args
 
 
 def parse_classes(spec: str) -> Optional[Dict[str, float]]:
@@ -616,9 +652,104 @@ def run_online(cfg: DetectionConfig, params, *, qps: float,
     return report
 
 
+def fleet_devices(replicas: int, device=None) -> List[torch.device]:
+    """Replica i's device: ``cuda:(i % device_count)`` (``device`` None
+    or a CUDA device; raising without a card), else ``device`` for every
+    replica (the CPU)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev] * replicas
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(replicas)]
+
+
+def run_fleet(cfg: DetectionConfig, params, *, replicas: int,
+              qps: float, duration_s: float, raw_size: int,
+              group: int = 1, max_batch: int = 16,
+              max_wait_ms: float = 10.0, max_queue: int = 256,
+              lanes: int = 0, seed: int = 0,
+              fault_plans: Optional[dict] = None,
+              quiet: bool = False, device=None) -> dict:
+    """Build a :class:`~repro_torch.serving.FleetRouter` over ``replicas``
+    :class:`~repro_torch.serving.Replica` instances (replica i on
+    :func:`fleet_devices`' device i), warm them, drive the fleet with
+    Poisson arrivals THROUGH the router, drain, and report.  Requests
+    route by content digest, so results are bit-identical to a single
+    server at any fleet size.  ``fault_plans`` maps a replica name
+    (``r0``..) to a :class:`~repro_torch.serving.FaultPlan`."""
+    from repro_torch.serving import BatcherConfig, FleetRouter, Replica
+    devices = fleet_devices(replicas, device)
+    lane_map = (None if lanes == 0 else
+                {"ingest": 1, "decode": max(1, lanes),
+                 "rs": max(1, lanes)})
+    reps = [Replica(
+        f"r{i}", cfg, params,
+        batcher=BatcherConfig(max_batch=max_batch,
+                              max_wait_ms=max_wait_ms,
+                              max_queue=max_queue),
+        lanes=lane_map,
+        fault_plan=(fault_plans or {}).get(f"r{i}"),
+        device=devices[i])
+        for i in range(replicas)]
+    router = FleetRouter(reps)
+    try:
+        router.warmup(synth_image(0, raw_size))
+        router.start()
+        if not quiet:
+            print(f"fleet: {replicas} replicas over "
+                  f"{len(set(map(str, devices)))} device(s), warmed",
+                  flush=True)
+        router.metrics.reset()
+
+        def make_images(k: int) -> np.ndarray:
+            return np.stack([synth_image(1000 + k * group + i, raw_size)
+                             for i in range(group)])
+
+        load = open_loop_load(router, qps=qps, duration_s=duration_s,
+                              make_images=make_images, seed=seed)
+        drained = router.drain(timeout=120.0)
+        stats = router.stats()
+        unresolved = sum(not h.done() for h in load["handles"])
+    finally:
+        router.close()
+    return {
+        "replicas": replicas, "qps_offered": qps,
+        "duration_s": duration_s, "group": group,
+        "offered": load["offered"], "rejected": load["rejected"],
+        "completed": int(stats["counters"].get("requests_completed", 0)),
+        "failed": int(stats["counters"].get("requests_failed", 0)),
+        "unresolved": int(unresolved), "drained": bool(drained),
+        "throughput_rps": round(stats["throughput_rps"], 2),
+        "latency_ms": _lat_ms(stats.get("request_latency_s", {})),
+        "spillovers": stats["spillovers"],
+        "reroutes": stats["reroutes"],
+        "unhealthy": stats["unhealthy"],
+        "straggler_retries": stats["straggler_retries"],
+        "faults_injected": int(
+            stats["fleet_counters"].get("faults_injected", 0)),
+        "replica_table": stats["replicas"],
+        "devices": [str(d) for d in devices],
+    }
+
+
 def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
+    if args.compilation_cache:
+        print(f"compilation cache: kernels in "
+              f"{_build.use_build_dir(args.compilation_cache)}, autotune "
+              f"cache {args.autotune_cache}", flush=True)
     cfg, params = build_config(args)
+    if args.fleet:
+        if args.replicas < 1:
+            raise SystemExit("--replicas must be >= 1")
+        rep = run_fleet(cfg, params, replicas=args.replicas, qps=args.qps,
+                        duration_s=args.duration, raw_size=args.img + 32,
+                        group=args.group, max_batch=args.max_batch,
+                        max_wait_ms=args.max_wait_ms,
+                        max_queue=args.max_queue, lanes=args.lanes,
+                        device=args.device)
+        print(json.dumps(rep, indent=1, default=str))
+        return
     if args.online:
         rep = run_online(cfg, params, qps=args.qps,
                          duration_s=args.duration,

@@ -12,19 +12,25 @@ tail latency, over the same stage registry as the offline engines.
   per-request futures over a persistent service-mode lane executor (each
   lane a CUDA stream on the card), straggler re-execution, live lane
   reallocation;
+* :mod:`repro_torch.serving.replica` — :class:`Replica`: one server
+  wrapped for fleet membership (identity, device pin, health,
+  injectable :class:`FaultPlan` fault hooks);
+* :mod:`repro_torch.serving.router` — :class:`FleetRouter`: rendezvous
+  content-digest routing over N replicas, spill-over on backpressure,
+  crash re-execution, rolling reconfigure;
 * :mod:`repro_torch.serving.metrics` — queue depth / batch occupancy /
   latency percentiles / throughput / cache + admission registry.
-
-The fleet (``Replica``, ``FaultPlan``, ``ReplicaCrashed``,
-``FleetRouter``) is ROADMAP queue 1 item 13c.
 """
 from repro_torch.serving.batcher import (AdmissionError, BatcherConfig,
                                          MicroBatcher)
 from repro_torch.serving.cache import (EmbeddingCache, InFlightTable,
                                        ResultCache)
 from repro_torch.serving.metrics import MetricsRegistry
+from repro_torch.serving.replica import FaultPlan, Replica, ReplicaCrashed
+from repro_torch.serving.router import FleetRouter
 from repro_torch.serving.server import DetectionServer
 
 __all__ = ["AdmissionError", "BatcherConfig", "MicroBatcher",
            "ResultCache", "EmbeddingCache", "InFlightTable",
-           "MetricsRegistry", "DetectionServer"]
+           "MetricsRegistry", "DetectionServer",
+           "Replica", "FaultPlan", "ReplicaCrashed", "FleetRouter"]

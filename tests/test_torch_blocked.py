@@ -390,6 +390,17 @@ def test_model_full_width_slices(rung):
         _hold(x, w, bias, 4, ct, True, rung)
 
 
+@pytest.mark.parametrize("rung", ["fp32", "bf16"])
+@pytest.mark.parametrize("ct", [24, 12])
+def test_model_trainer_width(rung, ct):
+    """C 24, the trainer's width (b 3, l 16, bb 2, ragged): layer 0 and a
+    24 -> 24 block at ct = C and at ct 12 (bf16: 24-byte weight rows,
+    staged in 8-byte chunks)."""
+    for cin in (3, 24):
+        x, w, bias = _case(ct + cin, 3, 16, cin, 24, rung)
+        _hold(x, w, bias, 2, ct, True, rung)
+
+
 def test_grid_fills_the_card_and_every_slice_fits():
     """At b = 32, l = 64 every candidate batch block gives at least 132
     blocks (the H100's SMs); every instantiation's shared memory fits;

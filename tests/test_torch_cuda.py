@@ -79,7 +79,8 @@ def test_ingest_kernel_matches_plain(dev, raw_hw, resize, crop, tile, k):
 
 @pytest.mark.parametrize("b,l,channels,depth,corr", [
     (5, 16, 16, 3, True), (3, 32, 32, 2, False), (32, 64, 64, 7, True),
-    (1, 64, 64, 7, True), (5, 64, 64, 2, False)])
+    (1, 64, 64, 7, True), (5, 64, 64, 2, False), (5, 32, 24, 4, True),
+    (3, 16, 8, 2, True), (32, 32, 24, 4, True)])
 def test_extractor_kernel_matches_plain(dev, b, l, channels, depth, corr):
     p = ex.params_from_numpy(ex.init_extractor_numpy(
         0, n_bits=60, channels=channels, depth=depth, tile=l if corr else 0,
@@ -296,7 +297,7 @@ def test_blocked_kernel_equals_flat_bitwise(dev, b, l, channels, depth):
         assert torch.equal(got[1], flat[1]), sc.to_string()
 
 
-@pytest.mark.parametrize("channels", [16, 32, 64])
+@pytest.mark.parametrize("channels", [8, 16, 24, 32, 64])
 def test_blocked_kernel_every_channel_tile_equals_flat(dev, channels):
     """Every channel tile the kernel is built for (multiples of 4 that
     divide C), with and without double buffering, at a batch block that
@@ -342,7 +343,8 @@ def _rung_pack(dev, dtype, *, channels, depth, tile, corr=True):
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
 @pytest.mark.parametrize("b,l,channels,depth,corr", [
     (5, 16, 16, 3, True), (3, 32, 32, 2, False), (32, 64, 64, 7, True),
-    (1, 64, 64, 7, True)])
+    (1, 64, 64, 7, True), (5, 32, 24, 4, True), (3, 16, 8, 2, True),
+    (32, 32, 24, 4, True)])
 def test_rung_kernel_matches_plain(dev, dtype, b, l, channels, depth, corr):
     """The bf16 / int8 kernels against their plain versions, logits and
     GAP embedding; the embedding output leaves the logits as they are."""
@@ -362,7 +364,7 @@ def test_rung_kernel_matches_plain(dev, dtype, b, l, channels, depth, corr):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("channels", [16, 32, 64])
+@pytest.mark.parametrize("channels", [8, 16, 24, 32, 64])
 def test_rung_blocked_equals_flat_every_channel_tile(dev, dtype, channels):
     """Every channel tile the blocked kernel is built for, with and
     without double buffering, at a ragged batch block: bitwise the flat
@@ -456,7 +458,7 @@ def _same(got, want) -> bool:
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
-@pytest.mark.parametrize("channels", [16, 32, 64])
+@pytest.mark.parametrize("channels", [8, 16, 24, 32, 64])
 @pytest.mark.parametrize("l", [16, 32, 64])
 @pytest.mark.parametrize("b", [1, 5, 32])
 def test_hidden_block_flat_equals_blocked_bitwise(dev, dtype, channels, l,

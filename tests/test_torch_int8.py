@@ -214,7 +214,7 @@ def _pack(channels: int, depth: int, tile: int, seed: int = 0):
         bias_scale=0.1)), "int8")
 
 
-@pytest.mark.parametrize("channels", [16, 32, 64])
+@pytest.mark.parametrize("channels", [8, 16, 24, 32, 64])
 def test_weight_fragments_round_trip_to_the_pack(channels):
     """Every conv of an int8 pack (layer 0, the hidden blocks, to_bits):
     the fragments invert to the pack's weight, which equals the
@@ -238,9 +238,11 @@ def test_weight_fragments_round_trip_to_the_pack(channels):
         assert torch.equal(fragments_to_weight(frags, cin, cout), w)
         np.testing.assert_array_equal(ws.numpy()[:cout], blk["scale"])
         assert not ws[cout:].any()
-        # one lane by hand: tap 4, k-step 0, column tile 1, g = 3, t = 1
-        got = frags[4, 0, 1, 4 * 3 + 1].numpy().view(np.int8)
-        col, w9 = 8 + 3, w.reshape(9, cin, cout).numpy()
+        # one lane by hand: tap 4, k-step 0, column tile 1 (C 8: 0),
+        # g = 3, t = 1
+        jt = 1 if cout > 8 else 0
+        got = frags[4, 0, jt, 4 * 3 + 1].numpy().view(np.int8)
+        col, w9 = 8 * jt + 3, w.reshape(9, cin, cout).numpy()
         want = np.zeros(8, np.int8)
         for i, ch in enumerate(list(range(4, 8)) + list(range(20, 24))):
             if ch < cin and col < cout:
@@ -372,7 +374,8 @@ def _tile_of(y: np.ndarray, img: int, by: int, bx: int) -> np.ndarray:
         IT * IT, -1)
 
 
-@pytest.mark.parametrize("channels,l", [(16, 32), (32, 16), (64, 32)])
+@pytest.mark.parametrize("channels,l", [(16, 32), (32, 16), (64, 32),
+                                        (24, 16), (8, 16)])
 def test_kernel_model_equals_plain_tap_chain(channels, l):
     """Layer 0, a hidden block and to_bits of an int8 pack: the model's
     pre-norm sums equal ``conv3x3_mm`` on the int8 pack (quantize per

@@ -1,10 +1,10 @@
 """PyTorch port: isolation from JAX and the CUDA-by-default contract.
 
-``repro_torch``, ``chip_smoke.py`` and the port's card tools
-(``tools/torch_*.py``) must import nothing of ``jax`` and nothing of
-the JAX package ``repro``: a subprocess with both blocked in
-``sys.modules`` imports every port module and runs ``detect_batch`` on
-the CPU.  The entry points run on the card unless the caller asks for
+``repro_torch``, ``chip_smoke.py``, the port's card tools
+(``tools/torch_*.py``) and its examples (``examples/torch_*.py``) must
+import nothing of ``jax`` and nothing of the JAX package ``repro``: a
+subprocess with both blocked in ``sys.modules`` imports every port
+module and example and runs ``detect_batch`` on the CPU.  The entry points run on the card unless the caller asks for
 the CPU, and ``chip_smoke.py`` exits non-zero with no result line when
 there is no card or when the repository is not beside it.
 """
@@ -25,6 +25,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 _ISOLATED = r"""
 import importlib, pkgutil, sys
@@ -36,6 +37,9 @@ torch.set_num_threads(1)
 import repro_torch, chip_smoke
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
+import runpy
+for path in {examples!r}:
+    runpy.run_path(path, run_name="example")   # its imports, not main()
 from repro_torch.core import extractor as ex
 from repro_torch.core.detect import DetectionConfig, DetectionPipeline
 p = ex.init_extractor_numpy(0, n_bits=60, channels=16, depth=3, tile=16)
@@ -59,7 +63,8 @@ def _env():
 
 
 def test_port_runs_with_jax_and_repro_blocked():
-    code = _ISOLATED.format(src=str(ROOT / "src"), root=str(ROOT))
+    code = _ISOLATED.format(src=str(ROOT / "src"), root=str(ROOT),
+                            examples=[str(p) for p in EXAMPLES])
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=_env(), cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -77,7 +82,8 @@ def _imported_modules(path: Path):
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
                          [ROOT / "chip_smoke.py"] +
-                         sorted((ROOT / "tools").glob("torch_*.py")),
+                         sorted((ROOT / "tools").glob("torch_*.py")) +
+                         EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     for mod in _imported_modules(path):
@@ -91,6 +97,22 @@ def test_pipeline_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DetectionPipeline(DetectionConfig(tile=16, img_size=32,
                                           resize_src=40), p)
+
+
+def test_training_and_fleet_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.core import ldm, predictor, train_extractor as te
+    from repro_torch.launch.serve import fleet_devices
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = te.ExtractorTrainConfig(steps=0)
+    for call in (lambda: te.train(cfg, verbose=False),
+                 lambda: te.evaluate({}, cfg),
+                 lambda: ldm.pretrain_autoencoder(steps=0),
+                 lambda: ldm.finetune_decoder({}, {}, steps=0),
+                 lambda: predictor.build_training_set({}),
+                 lambda: fleet_devices(2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert fleet_devices(3, "cpu") == [torch.device("cpu")] * 3
 
 
 _FAKE_CUDA = r"""

@@ -213,10 +213,11 @@ def test_blocked_plain_schedules_agree_with_flat():
 @pytest.mark.parametrize("channels,ct,ok", [
     (64, 0, True), (64, 4, True), (64, 16, True), (64, 32, True),
     (64, 128, True), (64, 12, False), (64, 6, False), (64, 2, False),
-    (16, 8, True), (32, 24, False)])
+    (16, 8, True), (32, 24, False), (8, 4, True), (8, 0, True),
+    (24, 12, True), (24, 16, False)])
 def test_blocked_cuda_channel_tiles(channels, ct, ok):
     assert fx.blocked_channel_tiles(channels) == tuple(
-        t for t in (4, 8, 16, 32, 64) if t <= channels and channels % t == 0)
+        t for t in range(4, channels + 1, 4) if channels % t == 0)
     kw = dict(channels=channels, tile=64, channel_tile=ct)
     if ok:
         fx.check_blocked_schedule(**kw)
@@ -224,6 +225,29 @@ def test_blocked_cuda_channel_tiles(channels, ct, ok):
         with pytest.raises(ValueError, match=r"channel tiles .* multiples "
                            r"of 4 that divide C; got ct%d" % ct):
             fx.check_blocked_schedule(**kw)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("channels", [8, 24])
+def test_cuda_checks_take_the_trainer_and_fleet_widths(dtype, channels):
+    """Hidden widths 8 (the fleet tests') and 24 (the trainer's): the
+    CUDA decode's pack check passes them at every rung, and the blocked
+    schedule check every channel tile that divides them; width 12 is
+    refused."""
+    pk = ex.pack_params(ex.params_from_numpy(ex.init_extractor_numpy(
+        0, n_bits=60, channels=channels, depth=2, tile=16)), dtype)
+    tiles = torch.zeros((2, 16, 16, 3))
+    assert fx._check_pack(tiles, pk) == fx.RUNGS[dtype]
+    assert channels in fx.HIDDEN_CHANNELS
+    cts = fx.blocked_channel_tiles(channels)
+    assert cts == ((4, 8) if channels == 8 else (4, 8, 12, 24))
+    for ct in cts + (0,):
+        fx.check_blocked_schedule(channels=channels, tile=16,
+                                  channel_tile=ct)
+    p12 = ex.pack_params(ex.params_from_numpy(ex.init_extractor_numpy(
+        0, n_bits=60, channels=12, depth=2, tile=16)), dtype)
+    with pytest.raises(ValueError, match="hidden width 12"):
+        fx._check_pack(tiles, p12)
 
 
 def test_registry_rejects_unrunnable_schedule_for_a_card_at_build():
@@ -238,8 +262,11 @@ def test_registry_rejects_unrunnable_schedule_for_a_card_at_build():
     cuda = torch.device("cuda")
     with pytest.raises(ValueError, match=r"channel tiles \(4, 8, 16\)"):
         StageRegistry(cfg, p16, cuda)
-    with pytest.raises(ValueError, match=r"hidden widths \(16, 32, 64\)"):
-        StageRegistry(cfg, _np_params(), cuda)                   # C=8
+    p12 = ex.init_extractor_numpy(0, n_bits=60, channels=12, depth=1,
+                                  tile=L)
+    with pytest.raises(ValueError,
+                       match=r"hidden widths \(8, 16, 24, 32, 64\)"):
+        StageRegistry(cfg, p12, cuda)                            # C=12
     with pytest.raises(ValueError, match="multiple of 16"):
         StageRegistry(DetectionConfig(tile=8, img_size=32, resize_src=40,
                                       decode_schedule="bb2-ct4"), p16, cuda)

@@ -62,33 +62,59 @@ def test_ragged_batches():
 
 
 # The case ids stay fixed from slice to slice.  Every flag here was once
-# unported; the online flags (item 13b) are accepted with the reference's
-# meanings now, and the fleet's (item 13c) is still rejected.
+# unported; the online flags (item 13b) and the fleet's (item 13c) are
+# accepted with the reference's meanings now, and the help names them.
 _ONLINE_FLAGS = {"--cache-embed-threshold=0.5": ("cache_embed_threshold",
                                                  0.5),
                  "--classes=a:5": ("classes", "a:5"),
                  "--online": ("online", True), "--qps=5": ("qps", 5.0),
                  "--realloc-every": ("realloc_every", 2),
-                 "--cache-exact": ("cache_exact", True)}
+                 "--cache-exact": ("cache_exact", True),
+                 "--fleet": ("fleet", True)}
 
 
 @pytest.mark.parametrize("flags", [
     ["--cache-embed-threshold=0.5"], ["--classes=a:5"], ["--online"],
     ["--fleet"], ["--qps=5"], ["--realloc-every", "2"], ["--cache-exact"]])
 def test_unported_flags_are_rejected(capsys, flags):
-    if flags[0] in _ONLINE_FLAGS:
-        name, value = _ONLINE_FLAGS[flags[0]]
-        args = serve.parse_args([*flags, *SMALL])
-        assert getattr(args, name) == value
-        return
-    with pytest.raises(SystemExit) as exc:
-        serve.parse_args([*flags, *SMALL])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "unrecognized arguments" in err and flags[0] in err
+    name, value = _ONLINE_FLAGS[flags[0]]
+    args = serve.parse_args([*flags, *SMALL])
+    assert getattr(args, name) == value
     with pytest.raises(SystemExit):
         serve.parse_args(["--help"])
-    assert "item 13c" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert flags[0].split("=")[0] in out and "item 13c" not in out
+    assert "--replicas" in out and "--compilation-cache" in out
+
+
+def test_fleet_and_compilation_cache_flags(tmp_path):
+    """--replicas sizes the fleet; --compilation-cache DIR moves the
+    autotune cache's default to DIR/decode_schedules.json (an explicit
+    --autotune-cache wins), as the reference's flag does."""
+    args = serve.parse_args(["--fleet", "--replicas", "3", *SMALL])
+    assert (args.fleet, args.replicas) == (True, 3)
+    assert args.autotune_cache == serve.DEFAULT_AUTOTUNE_CACHE
+    args = serve.parse_args(["--compilation-cache", str(tmp_path), *SMALL])
+    assert args.autotune_cache == str(tmp_path / "decode_schedules.json")
+    cfg, _ = serve.build_config(args)
+    assert cfg.autotune_cache == args.autotune_cache
+    args = serve.parse_args(["--compilation-cache", str(tmp_path),
+                             "--autotune-cache", "x.json", *SMALL])
+    assert args.autotune_cache == "x.json"
+
+
+def test_compilation_cache_moves_the_kernel_build(capsys, monkeypatch,
+                                                  tmp_path):
+    """The launcher points the kernel library's build directory at DIR
+    before anything is built (the CPU run builds nothing)."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    serve.main(["--batches", "1", "--batch", "2", "--compilation-cache",
+                str(tmp_path / "cc"), *SMALL])
+    first = capsys.readouterr().out.splitlines()[0]
+    assert first.startswith("compilation cache: kernels in ")
+    assert _build.BUILD_DIR == (tmp_path / "cc").resolve()
+    assert str(tmp_path / "cc" / "decode_schedules.json") in first
 
 
 def test_fixed_lanes(capsys):

@@ -11,8 +11,11 @@ images, coalesced into micro-batches of up to 32, each equal to
 int8, launching each main-path kernel once a micro-batch; exact-tier
 hits and coalesced followers equal the cold path; the decode's
 ``with_embed`` logits equal the embed-free ones bit for bit on the flat
-and a blocked schedule at every rung; and the server refuses to start
-without a card unless the CPU is asked for.
+and a blocked schedule at every rung; the server refuses to start
+without a card unless the CPU is asked for; and a fleet of two replicas
+sharing the card behind the ``FleetRouter`` returns each request's
+``detect_batch`` result bit for bit, also with one replica crashed
+after admission (its requests re-executed on the other).
 """
 import numpy as np
 import pytest
@@ -25,7 +28,8 @@ from repro_torch.core.extractor import (init_extractor_numpy, pack_params,
 from repro_torch.data.pipeline import synth_image
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import fused_extractor as fx
-from repro_torch.serving import BatcherConfig, DetectionServer
+from repro_torch.serving import (BatcherConfig, DetectionServer, FaultPlan,
+                                 FleetRouter, Replica)
 
 pytestmark = pytest.mark.gpu
 
@@ -149,3 +153,33 @@ def test_keys_stay_on_the_host(dev, params):
         assert torch.equal(keys, pipe.stages.image_keys(prng.key(3), 4))
     finally:
         srv.close()
+
+
+@pytest.mark.parametrize("crash", [False, True])
+def test_fleet_of_two_on_the_card_equals_detect_batch(dev, params, requests,
+                                                      crash):
+    cfg = DetectionConfig(**FULL)
+    plan = FaultPlan(crash_after_admit=1) if crash else None
+    reps = [Replica(f"r{i}", cfg, params,
+                    batcher=BatcherConfig(max_batch=32, max_wait_ms=2.0),
+                    fault_plan=plan if i == 0 else None, device=dev)
+            for i in range(2)]
+    router = FleetRouter(reps)
+    router.warmup(synth_image(0, 288))
+    router.start()
+    keys = [prng.key(500 + i) for i in range(len(requests))]
+    try:
+        hs = [router.submit(r, key=k) for r, k in zip(requests, keys)]
+        results = [h.result(120) for h in hs]
+        st = router.stats()
+    finally:
+        router.close()
+    assert st["counters"].get("requests_failed", 0) == 0
+    if crash:
+        assert st["reroutes"] >= 1 and st["unhealthy"] == 1
+    pipe = DetectionPipeline(cfg, params, device=dev)
+    try:
+        for r, k, res in zip(requests, keys, results):
+            _equal(res, pipe.detect_batch(r, key=k))
+    finally:
+        pipe.close()
