@@ -130,10 +130,25 @@ In order, it
    (launches counted), the decode kernels at hidden widths 8, 24 and 64
    at every rung against their plain versions with blocked equal to flat
    on every schedule, and a few LDM pretrain and fine-tune steps;
-11. checks the default and the staged path, and the bf16 and int8 rungs,
+11. drives the LM seed code (``phase_lm``; none of the hand kernels):
+   each of the ten archs at ``reduced`` — one float32 train step's loss
+   and gradients on the card against the CPU from the same weights (TF32
+   off), the MoE layers' routing on the same inputs, the bf16 loss —;
+   smollm-360m at full width and depth through ``python -m
+   repro_torch.launch.train`` (batch 8, sequence 512, bf16, 6 steps, a
+   checkpoint every 2): killed before step 5 (exit 42), resumed from
+   the step it committed, the resumed losses held to an uninterrupted
+   run's, with ms a step, tokens/s and peak memory; a 512-token prefill
+   at batch 4 and 16 greedy decode steps, each step's logits held to a
+   prefill of the extended prompt; and granite-moe-3b-a800m (2 layers),
+   mamba2-2.7b (2 layers) and h2o-danube-3-4b (1 layer, a 4608-token
+   prompt, so the 4096-window ring cache engages) at their published
+   widths: a train step and decode against prefill;
+12. checks the default and the staged path, and the bf16 and int8 rungs,
    against the JAX package's golden outputs
    (``tests/data/torch_port_golden.npz``);
-12. prints one ``{"kernels": [...]}`` line and, last, the status line.
+13. prints the whole script's time, one ``{"kernels": [...]}`` line and,
+   last, the status line.
 
 Every failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available or when
@@ -2566,7 +2581,17 @@ def online_submit(srv, reqs, gaps, keys=None):
     wall = time.perf_counter() - t0
     check(all(h.done() for h in handles) and srv.drain(60),
           "online: a request was left unresolved")
+    executor_idle(srv)
     return results, sub_us, wall, rid0
+
+
+def executor_idle(srv, timeout: float = 60.0):
+    """Wait until the server's executor has delivered every payload,
+    speculative retries that lost their race included: a straggler retry
+    is counted when it is dispatched and launches its kernels when it
+    runs, which can be after its request was resolved by the original."""
+    check(srv._ex.drain(timeout),
+          f"{srv.name}: the executor still held payloads after {timeout} s")
 
 
 def online_hold(srv, reqs, results, keys, label: str):
@@ -2947,6 +2972,8 @@ def fleet_run(router, reqs, gaps, keys):
     results = [h.result(300) for h in hs]
     wall = time.perf_counter() - t0
     check(router.drain(60), "fleet: a request was left unresolved")
+    for r in router._replicas.values():
+        executor_idle(r.srv)
     return results, hs, wall
 
 
@@ -3299,6 +3326,322 @@ def phase_train(dev, rng, card: str) -> dict:
     return out
 
 
+# -- phase 11: the LM seed code ---------------------------------------------
+LM_LOSS_RTOL = 1e-5       # fp32 loss, card vs CPU
+LM_GRAD_RTOL = 1e-3       # a gradient leaf, of 1 + its max |g| on the CPU
+LM_BF16_RTOL = 1e-2       # bf16 loss, card vs CPU; resumed vs uninterrupted
+LM_DECODE_ATOL = 0.15     # a decode step's logits vs a prefill's
+LM_SMOLLM = dict(batch=8, seq=512, steps=6, ckpt_every=2, crash_at=5)
+LM_DECODE = dict(batch=4, prompt=512, steps=16)
+# the other families at their published widths, cut in depth only:
+# (arch, layers kept, (b, s) of the train step or None, prefill batch,
+# prompt, decode steps)
+LM_FAMILIES = (("granite-moe-3b-a800m", 2, (4, 512), 4, 512, 4),
+               ("mamba2-2.7b", 2, (4, 512), 4, 512, 4),
+               ("h2o-danube-3-4b", 1, None, 1, 4608, 8))
+
+
+def lm_batch(cfg, b: int, s: int, dev, seed: int = 0) -> dict:
+    """The launcher's first batch (``lm_batches``) for ``cfg`` on ``dev``."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import lm_batches
+    batch = next(lm_batches(cfg, ShapeSpec("smoke", s, b, "train"),
+                            n_steps=1, seed=seed))
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def lm_loss_grads(model, batch, dtype):
+    """The train step's loss and gradients (one per leaf of
+    ``param_tree``), without the update."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import tree_leaves
+    leaves = tree_leaves(lm.param_tree(model))
+    loss = lm.forward_train(model, batch, compute_dtype=dtype, remat=False)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def lm_card_vs_cpu(dev, card: str) -> dict:
+    """Every arch at ``reduced``: one fp32 train step's loss and gradients
+    on the card against the CPU from the same weights (TF32 off: the step
+    refuses it), the MoE layers' routing on the same inputs, and the bf16
+    loss; then one ``make_train_step`` step on the card."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.models import lm, moe
+    from repro_torch.train import optimizer as opt_lib, step as step_lib
+    check(torch.get_float32_matmul_precision() == "highest" and
+          not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls are set to TF32")
+    out = {}
+    for arch in sorted(base.all_configs()):
+        cfg = base.reduced(base.get_config(arch))
+        tree = lm.lm_params_to_numpy(lm.init_params(cfg, 0, device="cpu"))
+        models = {d: lm.lm_params_from_numpy(tree, cfg, d)
+                  for d in ("cpu", dev)}
+        seen = []
+        hooks = [l.moe.register_forward_pre_hook(
+            lambda m, a: seen.append((m, a[0].detach().reshape(
+                -1, a[0].shape[-1]))))
+            for l in models["cpu"].layers if hasattr(l, "moe")]
+        res = {d: lm_loss_grads(models[d], lm_batch(cfg, 2, 32, d),
+                                torch.float32) for d in models}
+        for h in hooks:
+            h.remove()
+        (lc, gc), (lg, gg) = res["cpu"], res[dev]
+        loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+        grad_rel = max(float((a.cpu() - b).abs().max() / (1 + b.abs().max()))
+                       for a, b in zip(gg, gc))
+        card_moes = [l.moe for l in models[dev].layers if hasattr(l, "moe")]
+        routes_equal = all(torch.equal(
+            moe.route(cm, x.to(dev), cfg.moe)[2].cpu(),
+            moe.route(m, x, cfg.moe)[2]) for (m, x), cm in zip(seen,
+                                                                 card_moes))
+        bf = {d: float(lm.forward_train(models[d], lm_batch(cfg, 2, 32, d),
+                                        remat=False).detach())
+              for d in models}
+        bf_rel = abs(bf[dev] - bf["cpu"]) / abs(bf["cpu"])
+        step = step_lib.make_train_step(cfg, opt_lib.AdamWConfig(),
+                                        compute_dtype=torch.float32)
+        ost = opt_lib.init_opt_state(lm.param_tree(models[dev]))
+        _, _, met = step(models[dev], ost, lm_batch(cfg, 2, 32, dev))
+        step_rel = abs(float(met["loss"]) - float(lc)) / abs(float(lc))
+        check(loss_rel <= LM_LOSS_RTOL and grad_rel <= LM_GRAD_RTOL and
+              routes_equal and bf_rel <= LM_BF16_RTOL and
+              step_rel <= LM_LOSS_RTOL,
+              f"{arch} reduced card vs CPU: fp32 loss rel {loss_rel:.3g}, "
+              f"gradients {grad_rel:.3g}, routes equal {routes_equal}, "
+              f"bf16 loss rel {bf_rel:.3g}, step loss rel {step_rel:.3g}")
+        out[arch] = {"loss": float(lc), "loss_rel_err": loss_rel,
+                     "grad_err": grad_rel, "moe_layers": len(seen),
+                     "routes_equal": routes_equal,
+                     "bf16_loss_rel_err": bf_rel,
+                     "step_loss_rel_err": step_rel}
+    print(f"lm: the ten archs at reduced, card vs CPU: fp32 loss rel <= "
+          f"{max(r['loss_rel_err'] for r in out.values()):.3g}, gradients "
+          f"<= {max(r['grad_err'] for r in out.values()):.3g}, MoE routes "
+          f"equal in {sum(r['moe_layers'] for r in out.values())} layers, "
+          f"bf16 loss rel <= "
+          f"{max(r['bf16_loss_rel_err'] for r in out.values()):.3g}, "
+          f"on {card}")
+    return out
+
+
+def lm_launch(ckpt_dir, *extra) -> tuple:
+    """``python -m repro_torch.launch.train`` at smollm-360m's full width
+    (LM_SMOLLM) -> (exit code, stdout, the history JSON it printed)."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           "--arch", "smollm-360m", "--batch", str(LM_SMOLLM["batch"]),
+           "--seq", str(LM_SMOLLM["seq"]), "--steps",
+           str(LM_SMOLLM["steps"]), "--ckpt-every",
+           str(LM_SMOLLM["ckpt_every"]), "--ckpt-dir", str(ckpt_dir),
+           "--log-every", "1", *extra]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    p = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    hist = None
+    if p.returncode == 0:
+        hist = json.loads(p.stdout[p.stdout.rindex("\n[\n") + 1:])
+    return p.returncode, p.stdout + p.stderr[-3000:], hist
+
+
+def lm_smollm_train(dev, card: str) -> dict:
+    """smollm-360m at full width and depth through the launcher: a run
+    killed before step 5, its resume, and an uninterrupted run in this
+    process (ms a step, tokens/s, peak memory)."""
+    import shutil
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt_lib
+    from repro_torch.configs import base
+    from repro_torch.launch import train
+    ckpt = OUT / "lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc, log, _ = lm_launch(ckpt, "--simulate-failure",
+                           str(LM_SMOLLM["crash_at"]))
+    last = ckpt_lib.latest_step(ckpt)
+    check(rc == 42 and last in (2, 4),
+          f"smollm crash run: exit {rc}, latest step {last}: {log[-2000:]}")
+    t_crash = time.perf_counter() - t0
+    rc, log, resumed = lm_launch(ckpt)
+    check(rc == 0 and f"resumed from step {last}" in log,
+          f"smollm resume: exit {rc}: {log[-2000:]}")
+    t_resume = time.perf_counter() - t0 - t_crash
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    cfg = base.get_config("smollm-360m")
+    b, s = LM_SMOLLM["batch"], LM_SMOLLM["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.train_loop(cfg, base.ShapeSpec("smoke", s, b, "train"),
+                           steps=LM_SMOLLM["steps"], device=dev,
+                           log_every=1, verbose=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in run["history"]]
+    by_step = {h["step"]: h["loss"] for h in run["history"]}
+    rel = max(abs(h["loss"] - by_step[h["step"]]) / abs(by_step[h["step"]])
+              for h in resumed)
+    check(all(np.isfinite(losses)) and
+          all(np.isfinite(h["loss"]) for h in resumed) and
+          rel <= LM_BF16_RTOL,
+          f"smollm: losses {losses}, resumed {resumed}, rel {rel:.3g}")
+    walls = [h["wall_s"] for h in run["history"]]
+    step_ms = statistics.median(np.diff(walls)) * 1e3
+    n = sum(p.numel() for p in run["model"].parameters())
+    out = {"params": n, "batch": b, "seq": s, "losses": losses,
+           "resumed_from": last, "resumed": resumed,
+           "resumed_loss_rel_err": rel, "ms_a_step": step_ms,
+           "tokens_per_s": b * s / step_ms * 1e3,
+           "first_step_s": walls[0], "max_memory_allocated": peak,
+           "n_micro": run["plan"].n_micro, "crash_run_s": t_crash,
+           "resume_run_s": t_resume}
+    del run
+    torch.cuda.empty_cache()
+    print(f"lm: smollm-360m full width ({n} parameters), b {b} s {s} bf16: "
+          f"crashed before step {LM_SMOLLM['crash_at']} (exit 42), resumed "
+          f"from step {last}, resumed losses rel {rel:.3g} of an "
+          f"uninterrupted run's; {step_ms:.2f} ms a step (median), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB; on {card}")
+    return out
+
+
+def lm_decode(model, tokens, steps: int, hold: bool = True,
+              dtype=None) -> dict:
+    """Prefill ``tokens`` (b, s) with room for ``steps`` more, then
+    ``steps`` greedy decode steps, each step's logits held (unless not
+    ``hold``) against a prefill of the extended prompt; prefill ms
+    (median of 3) and ms a decode step (median).  bf16 compute unless
+    ``dtype`` says otherwise."""
+    import torch
+    from repro_torch.train import step as step_lib
+    cfg = model.cfg
+    s = tokens.shape[1]
+    kw = dict(compute_dtype=dtype or torch.bfloat16)
+    prefill = step_lib.make_prefill_step(cfg, max_len=s + steps, **kw)
+    plain = step_lib.make_prefill_step(cfg, **kw)
+    decode = step_lib.make_decode_step(cfg, **kw)
+    pre_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    tok = logits.argmax(-1)
+    seq, errs, dec_ms = tokens, [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = decode(model, tok, state)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+        seq = torch.cat([seq, tok], dim=1)
+        want, _ = plain(model, {"tokens": seq})
+        errs.append(float((logits.float() - want.float()).abs().max()))
+        check(np.isfinite(errs[-1]) and (errs[-1] < LM_DECODE_ATOL or
+                                         not hold),
+              f"{cfg.name} decode step {len(errs)}: |logits - prefill| "
+              f"{errs[-1]:.4g} (limit {LM_DECODE_ATOL})")
+        tok = logits.argmax(-1)
+    return {"batch": tokens.shape[0], "prompt": s, "steps": steps,
+            "compute_dtype": str(kw["compute_dtype"]).split(".")[-1],
+            "max_abs_err": max(errs), "errs": errs,
+            "prefill_ms": statistics.median(pre_ms),
+            "ms_a_decode_step": statistics.median(dec_ms)}
+
+
+def lm_full_width(dev, card: str) -> dict:
+    """smollm-360m's prefill and decode at full width and depth, then the
+    other families at their published widths, cut in depth only."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.models import lm, moe
+    from repro_torch.train import optimizer as opt_lib, step as step_lib
+    out = {}
+    cfg = base.get_config("smollm-360m")
+    model = lm.init_params(cfg, 1, device=dev)
+    d = LM_DECODE
+    toks = torch.from_numpy(token_batch(0, d["batch"], d["prompt"],
+                                        cfg.vocab)).to(dev)
+    out["smollm-360m"] = {"cut": None, **lm_decode(model, toks, d["steps"])}
+    del model
+    for arch, layers, train_bs, b, prompt, steps in LM_FAMILIES:
+        cfg = dataclasses.replace(base.get_config(arch), n_layers=layers)
+        model = lm.init_params(cfg, 1, device=dev)
+        rec = {"cut": f"n_layers {base.get_config(arch).n_layers} -> "
+                      f"{layers}"}
+        if train_bs is not None:
+            tb, ts = train_bs
+            step = step_lib.make_train_step(cfg, opt_lib.AdamWConfig())
+            ost = opt_lib.init_opt_state(lm.param_tree(model))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, ost, met = step(model, ost, lm_batch(cfg, tb, ts, dev))
+            loss = float(met["loss"])
+            check(np.isfinite(loss), f"{arch}: train step loss {loss}")
+            rec["train"] = {"batch": tb, "seq": ts, "loss": loss,
+                            "first_step_s": time.perf_counter() - t0}
+            if cfg.moe is not None:
+                rec["train"]["capacity"] = moe.capacity(tb * ts, cfg.moe)
+            del ost
+        toks = torch.from_numpy(token_batch(0, b, prompt,
+                                            cfg.vocab)).to(dev)
+        kw = {}
+        if cfg.moe is not None:
+            # a prefill of b x s tokens drops the choices past an
+            # expert's capacity, a decode step of b tokens none, and in
+            # bf16 a near tie among the router's top-k can fall either
+            # way on the two paths: recorded as published (bf16), held
+            # in fp32 at a capacity no expert can fill
+            rec["published_capacity"] = lm_decode(model, toks, steps,
+                                                  hold=False)
+            cf = cfg.moe.n_experts / cfg.moe.top_k
+            for layer in model.layers:
+                if hasattr(layer, "moe"):
+                    layer.moe.moe = dataclasses.replace(
+                        layer.moe.moe, capacity_factor=cf)
+            rec["decode_capacity_factor"] = cf
+            kw = dict(dtype=torch.float32)
+        rec.update(lm_decode(model, toks, steps, **kw))
+        out[arch] = rec
+        del model
+        torch.cuda.empty_cache()
+    for arch, r in out.items():
+        print(f"lm: {arch} ({r['cut'] or 'full depth'}): prefill "
+              f"{r['batch']} x {r['prompt']} {r['prefill_ms']:.2f} ms, "
+              f"{r['steps']} decode steps {r['ms_a_decode_step']:.2f} ms a "
+              f"step, |decode - prefill| <= {r['max_abs_err']:.4g}"
+              + f" ({r['compute_dtype']}"
+              + (f", capacity factor {r['decode_capacity_factor']}; "
+                 f"{r['published_capacity']['max_abs_err']:.4g} at bf16 "
+                 f"and the published one" if "published_capacity" in r
+                 else "") + ")"
+              + (f", train step loss {r['train']['loss']:.4f}"
+                 if "train" in r else "") + f"; on {card}")
+    return out
+
+
+def phase_lm(dev, card: str) -> dict:
+    """The LM seed code on the card (none of the hand kernels): the ten
+    archs at ``reduced`` against the CPU, smollm-360m at full width
+    through the launcher (crash, resume) and through prefill and decode,
+    and the other families at their published widths, cut in depth."""
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": lm_card_vs_cpu(dev, card)}
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    out["smollm_train"] = lm_smollm_train(dev, card)
+    out["full_width"] = lm_full_width(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"lm": out, "card": card}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3312,6 +3655,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
+    t_script = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3387,6 +3731,8 @@ def main() -> int:
     print(f"fleet phase: {fleet['seconds']:.1f} s")
     train = phase_train(dev, rng, card)
     print(f"train phase: {train['seconds']:.1f} s")
+    lm_phase = phase_lm(dev, card)
+    print(f"lm phase: {lm_phase['seconds']:.1f} s")
     phase_golden()
     phases["rs_decode"]["device_ms"] = rs_device_ms(dev, rng, card)
 
@@ -3514,8 +3860,10 @@ def main() -> int:
         {"card": card, "kernels": kernels, "phases": phases,
          "rungs": rungs, "window_ips": window_ips, "configs": configs,
          "escalation": escalation, "lanes": lanes, "online": online,
-         "fleet": fleet, "train": train},
+         "fleet": fleet, "train": train, "lm": lm_phase},
         indent=1))
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, "
+          f"the kernels' build included, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,11 @@ from repro_torch.core.lanes import (LaneExecutor, LaneStreams, Stage,
 
 
 def to_device(tree, device: torch.device):
-    """Arrays and tensors of a tree of tuples and lists on ``device``
-    (other leaves as they are), each through :func:`lanes.upload`."""
+    """Arrays and tensors of a tree of dicts, tuples and lists on
+    ``device`` (other leaves as they are), each through
+    :func:`lanes.upload`."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_device(t, device) for t in tree)
     if not isinstance(tree, (np.ndarray, torch.Tensor)):

@@ -1,1 +1,2 @@
-"""Synthetic image data (counterpart of ``repro.data``)."""
+"""Synthetic images and the LM token stream (counterpart of
+``repro.data``)."""

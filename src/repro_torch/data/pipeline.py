@@ -1,8 +1,10 @@
-"""Synthetic procedural images for detection and training runs (numpy
-copies of ``repro.data.pipeline``'s ``synth_image``, ``image_batches``
-and ``ImageShard``, so the port never imports the JAX package).
-Deterministic given (seed, index), so every worker can slice its own
-shard without coordination."""
+"""Synthetic procedural images for detection and training runs, and the
+synthetic token stream of LM training (numpy copies of
+``repro.data.pipeline``'s ``synth_image``, ``image_batches``,
+``ImageShard``, ``token_batch`` and ``lm_batches``, so the port never
+imports the JAX package).  Deterministic given (seed, index), so every
+worker can slice its own shard without coordination, and a restarted
+run sees the same batches (the stream is indexed by global step)."""
 from __future__ import annotations
 
 import dataclasses
@@ -56,3 +58,43 @@ class ImageShard:
             yield np.stack([synth_image(idx0 + i * self.n_workers,
                                         self.size, self.seed)
                             for i in range(self.batch)])
+
+
+# ---------------------------------------------------------------------------
+# synthetic token stream for LM training
+# ---------------------------------------------------------------------------
+
+
+def token_batch(step: int, batch: int, seq: int, vocab: int,
+                seed: int = 0) -> np.ndarray:
+    """Markov-ish synthetic tokens: deterministic in (seed, step)."""
+    rng = np.random.default_rng(np.uint64(seed) * 7_919 + np.uint64(step))
+    # low-entropy structure so the loss actually decreases
+    base = rng.integers(0, vocab, (batch, 1 + seq // 8))
+    toks = np.repeat(base, 8, axis=1)[:, :seq]
+    noise = rng.integers(0, vocab, toks.shape)
+    mask = rng.random(toks.shape) < 0.15
+    return np.where(mask, noise, toks).astype(np.int32)
+
+
+def lm_batches(cfg, shape, *, n_steps: int, seed: int = 0,
+               start_step: int = 0):
+    """Train batches for an arch config: tokens, or the encoder's frame
+    embeddings and target tokens, or a vision prefix of patch embeddings
+    and the text tokens."""
+    b, s = shape.global_batch, shape.seq_len
+    for step in range(start_step, start_step + n_steps):
+        if cfg.is_encoder_decoder:
+            rng = np.random.default_rng(seed * 31 + step)
+            tgt = max(64, s // 8)
+            yield {"frame_embeds": rng.normal(
+                0, 1, (b, s, cfg.d_model)).astype(np.float32),
+                "tgt_tokens": token_batch(step, b, tgt, cfg.vocab, seed)}
+        elif cfg.frontend == "vision":
+            rng = np.random.default_rng(seed * 37 + step)
+            nf = cfg.n_frontend_tokens
+            yield {"tokens": token_batch(step, b, s - nf, cfg.vocab, seed),
+                   "patch_embeds": rng.normal(
+                       0, 1, (b, nf, cfg.d_model)).astype(np.float32)}
+        else:
+            yield {"tokens": token_batch(step, b, s, cfg.vocab, seed)}

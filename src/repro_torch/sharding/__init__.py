@@ -1,1 +1,2 @@
-"""Sharding of the detection batch (counterpart of ``repro.sharding``)."""
+"""The detection batch's data-parallel split and the LM's plan
+(counterpart of ``repro.sharding``)."""

@@ -41,6 +41,19 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
     return [tree]
 
 
+def tree_items(tree: Any, prefix: str = "") -> List[tuple]:
+    """(name, leaf) of every leaf in :func:`tree_leaves`' order, each name
+    the leaf's path as ``jax.tree_util.keystr`` writes it (``['groups'][0]
+    ['attn']['wq']``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_items(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_items(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
 def tree_unflatten(tree: Any, leaves: List[Any]) -> Any:
     """``tree``'s structure with its leaves replaced, in
     :func:`tree_leaves`' order, by ``leaves``."""

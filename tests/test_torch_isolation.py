@@ -4,9 +4,12 @@
 (``tools/torch_*.py``) and its examples (``examples/torch_*.py``) must
 import nothing of ``jax`` and nothing of the JAX package ``repro``: a
 subprocess with both blocked in ``sys.modules`` imports every port
-module and example and runs ``detect_batch`` on the CPU.  The entry points run on the card unless the caller asks for
-the CPU, and ``chip_smoke.py`` exits non-zero with no result line when
-there is no card or when the repository is not beside it.
+module and example and runs ``detect_batch`` and an LM train step on
+the CPU.  The entry points run on the card unless the caller asks for
+the CPU (``python -m repro_torch.launch.train`` without a card and
+without ``--device cpu`` exits non-zero), and ``chip_smoke.py`` exits
+non-zero with no result line when there is no card or when the
+repository is not beside it.
 """
 import ast
 import os
@@ -49,6 +52,15 @@ raw = np.random.default_rng(0).integers(0, 256, (3, 64, 64, 3), np.uint8)
 out = pipe.detect_batch(raw)
 assert out["message_bits"].shape == (3, 48)
 assert out["logits"].shape == (3, 60) and np.isfinite(out["logits"]).all()
+from repro_torch.configs import base
+from repro_torch.models import lm
+from repro_torch.train import optimizer as opt, step
+cfg = base.reduced(base.get_config("jamba-1.5-large-398b"))
+model = lm.init_params(cfg, 0, device="cpu")
+tok = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 16)))
+model, _, met = step.make_train_step(cfg, opt.AdamWConfig())(
+    model, opt.init_opt_state(lm.param_tree(model)), {{"tokens": tok}})
+assert np.isfinite(float(met["loss"]))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 assert all(sys.modules[m] is None for m in bad), bad
@@ -113,6 +125,39 @@ def test_training_and_fleet_need_cuda_unless_cpu_is_asked(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert fleet_devices(3, "cpu") == [torch.device("cpu")] * 3
+
+
+def test_lm_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.configs import base
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = base.reduced(base.get_config("smollm-360m"))
+    shape = base.ShapeSpec("t", 16, 2, "train")
+    for call in (lambda: lm.init_params(cfg),
+                 lambda: train.train_loop(cfg, shape, steps=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert next(lm.init_params(cfg, device="cpu").parameters()).is_cpu
+
+
+_NO_CUDA_LAUNCH = r"""
+import runpy, sys, torch
+torch.cuda.is_available = lambda: False
+sys.argv = ["train", "--reduced", "--steps", "1", "--batch", "2",
+            "--seq", "16"]
+runpy.run_module("repro_torch.launch.train", run_name="__main__")
+"""
+
+
+def test_lm_launcher_without_card_exits_nonzero(tmp_path):
+    env = dict(_env(), PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _NO_CUDA_LAUNCH],
+                         capture_output=True, text=True, timeout=120,
+                         env=env, cwd=tmp_path)
+    assert res.returncode != 0
+    assert "--device cpu" in res.stderr
+    assert "[train]" not in res.stdout
 
 
 _FAKE_CUDA = r"""
