@@ -144,10 +144,23 @@ In order, it
    mamba2-2.7b (2 layers) and h2o-danube-3-4b (1 layer, a 4608-token
    prompt, so the 4096-window ring cache engages) at their published
    widths: a train step and decode against prefill;
-12. checks the default and the staged path, and the bf16 and int8 rungs,
+12. runs the LM's dry-run (``phase_dryrun``; none of the hand kernels):
+   ``python -m repro_torch.launch.dryrun`` with probes, one process a
+   row, in parallel on the host — smollm-360m at all four shapes on both
+   production meshes (long_500k skipped with the reference's reason),
+   granite-moe-3b-a800m train_4k and mamba2-2.7b long_500k on the
+   single-pod mesh, every enabled cell ``ok`` with its derived roofline —
+   and meanwhile on the card smollm-360m at a 1 x 1 plan at the LM
+   phase's shapes (train b 8 x 512, prefill 4 x 512, one decode step):
+   the FLOPs counted on meta equal ``FlopCounterMode``'s count of the
+   same step on the card and the argument bytes from the specs equal the
+   parameters, AdamW moments and inputs made on the card, exactly; the
+   temp estimate beside the step's peak memory and its ms beside the
+   roofline bound are printed, not gated;
+13. checks the default and the staged path, and the bf16 and int8 rungs,
    against the JAX package's golden outputs
    (``tests/data/torch_port_golden.npz``);
-13. prints the whole script's time, one ``{"kernels": [...]}`` line and,
+14. prints the whole script's time, one ``{"kernels": [...]}`` line and,
    last, the status line.
 
 Every failed check raises, so the script exits non-zero; it also exits
@@ -3642,6 +3655,226 @@ def phase_lm(dev, card: str) -> dict:
     return out
 
 
+# The LM's dry-run (phase_dryrun): the cells run as ``python -m
+# repro_torch.launch.dryrun``, one process a row, all at once, while the
+# one-card check uses the card
+DRYRUN_CELLS = (("smollm-360m", "train_4k", "both"),
+                ("smollm-360m", "prefill_32k", "both"),
+                ("smollm-360m", "decode_32k", "both"),
+                ("smollm-360m", "long_500k", "both"),
+                ("granite-moe-3b-a800m", "train_4k", "single"),
+                ("mamba2-2.7b", "long_500k", "single"))
+DRYRUN_TIMEOUT_S = 300    # the cell processes' limit (each ~10-60 s)
+# the one-card check at the LM phase's own shapes: (mode, batch, seq)
+DRYRUN_CARD = (("train", LM_SMOLLM["batch"], LM_SMOLLM["seq"]),
+               ("prefill", 4, 512), ("decode", 4, 512))
+
+
+def dryrun_start(out_dir: Path) -> list:
+    """Start one ``python -m repro_torch.launch.dryrun`` a DRYRUN_CELLS
+    row (probes on), each writing its cells' records into ``out_dir``."""
+    import os
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out",
+               str(out_dir), "--force"]
+        procs.append(((arch, shape, mesh), subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def dryrun_finish(procs: list, out_dir: Path, t0: float, card: str) -> dict:
+    """Wait for the cell processes (killing any still running on a
+    failure) and hold their records: every enabled cell ``ok`` with its
+    derived terms, every other ``skipped`` with ``cell_enabled``'s
+    reason."""
+    from repro_torch.configs import base
+    try:
+        for cell, p in procs:
+            log, _ = p.communicate(timeout=max(
+                1.0, t0 + DRYRUN_TIMEOUT_S - time.perf_counter()))
+            check(p.returncode == 0, f"dryrun {cell}: exit {p.returncode}: "
+                  f"{log[-3000:]}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cells = {}
+    for arch, shape_name, mesh in DRYRUN_CELLS:
+        cfg = base.get_config(arch)
+        shape = base.SHAPES_BY_NAME[shape_name]
+        enabled, why = base.cell_enabled(cfg, shape)
+        for m in (("single", "multi") if mesh == "both" else (mesh,)):
+            rec = json.loads((out_dir / f"{arch}__{shape_name}__{m}__"
+                              "baseline.json").read_text())
+            key = f"{arch}/{shape_name}/{m}"
+            if not enabled:
+                check(rec["status"] == "skipped" and rec["reason"] == why,
+                      f"dryrun {key}: {rec.get('status')} "
+                      f"{rec.get('reason')!r}, want skipped {why!r}")
+                cells[key] = {"status": "skipped", "reason": rec["reason"]}
+                print(f"dryrun: {key} skipped: {rec['reason']}")
+                continue
+            check(rec["status"] == "ok" and "derived" in rec,
+                  f"dryrun {key}: {rec.get('status')}: "
+                  f"{rec.get('error', '')}")
+            d = rec["derived"]
+            counted = d["flops_per_device"] * rec["plan"]["n_chips"]
+            cells[key] = {
+                "status": "ok", "plan": rec["plan"],
+                "probe_s": rec["probe_s"], "memory": rec["memory"],
+                **{k: d[k] for k in (
+                    "dominant", "roofline_bound_s", "t_compute_s",
+                    "t_memory_s", "t_collective_s", "flops_per_device",
+                    "hbm_bytes_per_device", "coll_bytes_per_device",
+                    "model_flops", "useful_flops_ratio")},
+                "counted_over_model_flops": counted / d["model_flops"]}
+            print(f"dryrun: {key} ok: dominant {d['dominant']}, roofline "
+                  f"bound {d['roofline_bound_s']:.6g} s a step at the H100 "
+                  f"peaks (compute {d['t_compute_s']:.4g}, memory "
+                  f"{d['t_memory_s']:.4g}, collective "
+                  f"{d['t_collective_s']:.4g}), counted FLOPs "
+                  f"{cells[key]['counted_over_model_flops']:.4f}x the "
+                  f"model's, probes {rec['probe_s']:.1f} s (host)")
+    return cells
+
+
+def dryrun_step(cfg, shape, dev) -> dict:
+    """The real step of a DRYRUN_CARD row on the card: median ms of 5
+    after a warm-up, and the peak bytes allocated above what its
+    arguments hold."""
+    import gc
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib, step as step_lib
+    gc.collect()  # the traces' models, held in reference cycles
+    torch.cuda.empty_cache()
+    model = dryrun.build_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    if shape.mode == "train":
+        opt = opt_lib.init_opt_state(lm.param_tree(model))
+        tokens = torch.randint(0, cfg.vocab, (shape.global_batch,
+                                              shape.seq_len),
+                               generator=gen, device=dev)
+        train_step = step_lib.make_train_step(cfg, opt_lib.AdamWConfig())
+
+        def run():
+            train_step(model, opt, {"tokens": tokens})
+    else:
+        inputs = dryrun.step_inputs(cfg, shape, dev)
+
+        @torch.no_grad()
+        def run():
+            if shape.mode == "prefill":
+                lm.forward_prefill(model, inputs["batch"])
+            else:
+                lm.forward_decode(model, inputs["tokens"], inputs["state"])
+    run()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    del model, run
+    torch.cuda.empty_cache()
+    return {"ms": statistics.median(ms), "resident_bytes": resident,
+            "max_memory_allocated": peak, "peak_above_resident": peak - resident}
+
+
+def dryrun_card(dev, card: str) -> dict:
+    """smollm-360m at a 1 x 1 plan, full depth, at DRYRUN_CARD's shapes:
+    the FLOPs the meta trace counts equal ``FlopCounterMode``'s count of
+    the same step on the card, and the argument bytes from the specs
+    equal the bytes of the parameters, AdamW moments and inputs made on
+    the card; beside them (not gated) the unfused bytes of both, the temp
+    estimate against the real step's peak, and its ms against the
+    roofline bound."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    from repro_torch.sharding import planner
+    cfg = base.get_config("smollm-360m")
+    mesh = mesh_lib.ShapeMesh(("data", "model"), (1, 1))
+    out = {}
+    for mode, b, s in DRYRUN_CARD:
+        shape = base.ShapeSpec(f"card_{mode}", s, b, mode)
+        plan = planner.make_plan(cfg, shape, mesh)
+        meta = dryrun.trace_cell(cfg, shape, plan)
+        on_card = dryrun.trace_cell(cfg, shape, plan, device=dev)
+        check(meta["flops"] == on_card["flops"],
+              f"dryrun {mode}: meta counted {meta['flops']} FLOPs, the "
+              f"card {on_card['flops']}")
+        rec = dryrun.cell_record(cfg, shape, mesh, plan)
+        args = rec["memory"]["argument_size_in_bytes"]
+        made = dryrun.materialized_argument_bytes(cfg, shape, dev)
+        torch.cuda.empty_cache()
+        check(args == made, f"dryrun {mode}: argument bytes {args} from the "
+              f"specs, {made} made on the card")
+        step = dryrun_step(cfg, shape, dev)
+        temp = rec["memory"]["temp_size_in_bytes"]
+        bound = rec["derived"]["roofline_bound_s"] * 1e3
+        out[mode] = {
+            "batch": b, "seq": s, "flops": meta["flops"],
+            "flops_equal": True, "argument_bytes": args,
+            "argument_bytes_equal": True,
+            "unfused_bytes_meta": meta["bytes"],
+            "unfused_bytes_card": on_card["bytes"],
+            "temp_estimate": temp, **step,
+            "temp_over_peak_above_resident":
+                temp / max(step["peak_above_resident"], 1),
+            "roofline_bound_ms": bound,
+            "dominant": rec["derived"]["dominant"],
+            "ms_over_bound": step["ms"] / bound,
+            "probe_s": rec["probe_s"], "meta_trace_s": meta["seconds"],
+            "card_trace_s": on_card["seconds"]}
+        print(f"dryrun: smollm-360m {mode} b {b} s {s} on a 1 x 1 plan: "
+              f"{meta['flops']} FLOPs counted on meta == on the card; "
+              f"argument bytes {args} == made on the card; unfused bytes "
+              f"meta {meta['bytes']}, card {on_card['bytes']}; temp "
+              f"estimate {temp / 2**20:.1f} MiB vs "
+              f"{step['peak_above_resident'] / 2**20:.1f} MiB above the "
+              f"resident arguments at the step's peak (max_memory_allocated"
+              f" {step['max_memory_allocated'] / 2**30:.2f} GiB), ratio "
+              f"{out[mode]['temp_over_peak_above_resident']:.3f}; "
+              f"{step['ms']:.3f} ms a step (median of 5) vs a roofline bound"
+              f" of {bound:.4f} ms ({rec['derived']['dominant']}); on {card}")
+    return out
+
+
+def phase_dryrun(dev, card: str) -> dict:
+    """The LM's dry-run: the DRYRUN_CELLS cells through the CLI in
+    parallel processes on the host (meta), and meanwhile the one-card
+    check on the card."""
+    t0 = time.perf_counter()
+    out_dir = OUT / "dryrun"
+    procs = dryrun_start(out_dir)
+    try:
+        card_check = dryrun_card(dev, card)
+    except BaseException:
+        for _, p in procs:
+            p.kill()
+            p.wait()
+        raise
+    t_card = time.perf_counter() - t0
+    cells = dryrun_finish(procs, out_dir, t0, card)
+    out = {"cells": cells, "card_check": card_check, "card_check_s": t_card,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"dryrun": out, "card": card}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3733,6 +3966,8 @@ def main() -> int:
     print(f"train phase: {train['seconds']:.1f} s")
     lm_phase = phase_lm(dev, card)
     print(f"lm phase: {lm_phase['seconds']:.1f} s")
+    dryrun = phase_dryrun(dev, card)
+    print(f"dryrun phase: {dryrun['seconds']:.1f} s")
     phase_golden()
     phases["rs_decode"]["device_ms"] = rs_device_ms(dev, rng, card)
 
@@ -3860,7 +4095,8 @@ def main() -> int:
         {"card": card, "kernels": kernels, "phases": phases,
          "rungs": rungs, "window_ips": window_ips, "configs": configs,
          "escalation": escalation, "lanes": lanes, "online": online,
-         "fleet": fleet, "train": train, "lm": lm_phase},
+         "fleet": fleet, "train": train, "lm": lm_phase,
+         "dryrun": dryrun},
         indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, "
           f"the kernels' build included, on {card}")

@@ -15,6 +15,13 @@ stacks one layer per group).  The port's tree (:func:`param_tree`) has
 :func:`from_reference` splits it back, for any leaves (numpy arrays or
 tensors), so a reference tree round-trips exactly and checkpoints keep
 the reference's entry names.
+
+The dry-run's abstract trees (:func:`abstract_params`,
+:func:`input_specs`, :func:`abstract_decode_state`) are tensors on the
+``meta`` device: shapes and dtypes, no storage, in the reference's
+layout leaf for leaf.  :func:`decode_state_from_reference` and
+:func:`decode_state_to_reference` carry a decode state between that
+stacked layout and the port's one cache a layer.
 """
 from __future__ import annotations
 
@@ -24,10 +31,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models import attention, blocks
+from repro_torch.models import attention, blocks, ssm as ssm_lib
 from repro_torch.models.layers import (causal_lm_loss, dense_init, rmsnorm,
                                        zeros_param)
-from repro_torch.train.optimizer import tree_items, tree_leaves
+from repro_torch.train.optimizer import tree_items, tree_leaves, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +159,15 @@ def from_reference(tree: dict, cfg) -> dict:
         out["encoder"] = [_take_layer(enc, i)
                           for i in range(len(tree_leaves(enc)[0]))]
     return out
+
+
+def abstract_params(cfg, dtype=torch.float32) -> dict:
+    """The parameters as meta tensors in the reference's layout (its
+    ``jax.eval_shape`` of ``init_params``), without allocating."""
+    with torch.device("meta"):
+        model = LM(cfg, None, dtype=dtype)
+    return to_reference(tree_map(lambda t: t.detach(), param_tree(model)),
+                        cfg)
 
 
 def lm_params_to_numpy(model: LM) -> dict:
@@ -324,3 +340,94 @@ def forward_decode(model: LM, tokens, state, *,
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     return unembed(model, x), dict(state, caches=new_caches,
                                    index=state["index"] + 1)
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs for the dry-run (meta tensors: no storage)
+# ---------------------------------------------------------------------------
+
+
+def sds(shape, dtype) -> torch.Tensor:
+    """A meta tensor of ``shape`` and ``dtype`` (the reference's
+    ``ShapeDtypeStruct``)."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg, shape, *, compute_dtype=torch.bfloat16) -> dict:
+    """Abstract model inputs for an (arch, shape) cell.
+
+    train/prefill -> {"batch": ...}; decode -> {"tokens", "state"}: one
+    new token against a KV cache of ``seq_len``; the audio and vision
+    frontends give precomputed embeddings.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    d = cfg.d_model
+    i32 = torch.int32
+    if shape.mode in ("train", "prefill"):
+        if cfg.is_encoder_decoder:
+            tgt = max(64, s // 8)
+            batch = {"frame_embeds": sds((b, s, d), compute_dtype),
+                     "tgt_tokens": sds((b, tgt), i32)}
+        elif cfg.frontend == "vision":
+            nf = cfg.n_frontend_tokens
+            batch = {"tokens": sds((b, s - nf), i32),
+                     "patch_embeds": sds((b, nf, d), compute_dtype)}
+        else:
+            batch = {"tokens": sds((b, s), i32)}
+        return {"batch": batch}
+    state = abstract_decode_state(cfg, b, s, compute_dtype)
+    return {"tokens": sds((b, 1), i32), "state": state}
+
+
+def abstract_decode_state(cfg, b, s, compute_dtype=torch.bfloat16) -> dict:
+    """The decode state in the reference's layout: ``caches`` a tuple over
+    the in-group positions, each leaf stacked over the ``ng`` groups
+    (bf16 caches), a scalar int32 ``index`` and, encoder-decoder, the
+    stacked cross K/V in ``compute_dtype``."""
+    ng = blocks.n_groups(cfg)
+    caches = []
+    for i in range(blocks.group_size(cfg)):
+        if cfg.layer_kind(i) == "attn":
+            proto = attention.empty_cache(cfg, b, s, torch.bfloat16,
+                                          device="meta")
+        else:
+            proto = ssm_lib.empty_ssm_cache(cfg, b, torch.bfloat16,
+                                            device="meta")
+        caches.append({k: sds((ng,) + tuple(v.shape), v.dtype)
+                       for k, v in proto.items()})
+    state = {"caches": tuple(caches), "index": sds((), torch.int32)}
+    if cfg.is_encoder_decoder:
+        kvh, hd = cfg.n_kv_heads, cfg.head_dim
+        state["cross"] = (sds((ng, b, s, kvh, hd), compute_dtype),
+                          sds((ng, b, s, kvh, hd), compute_dtype))
+    return state
+
+
+def decode_state_from_reference(state: dict, cfg, index=None) -> dict:
+    """A reference-layout decode state -> the port's (one cache a layer,
+    layer ``gi * gs + j`` being entry ``gi`` of ``caches[j]``; the cross
+    K/V a (k, v) pair a layer).  ``index`` (an int) replaces the state's
+    own, which must be one on a real device."""
+    gs = blocks.group_size(cfg)
+    ng = blocks.n_groups(cfg)
+    if index is None:
+        index = int(state["index"])
+    out = {"caches": [_take_layer(state["caches"][i % gs], i // gs)
+                      for i in range(ng * gs)], "index": index}
+    if "cross" in state:
+        k, v = state["cross"]
+        out["cross"] = [(k[i], v[i]) for i in range(ng)]
+    return out
+
+
+def decode_state_to_reference(state: dict, cfg, stack=_stack) -> dict:
+    """The inverse of :func:`decode_state_from_reference` (the index
+    kept as it is)."""
+    gs = blocks.group_size(cfg)
+    caches = state["caches"]
+    out = {"caches": tuple(_stack_layers(caches[j::gs], stack)
+                           for j in range(gs)), "index": state["index"]}
+    if "cross" in state:
+        out["cross"] = tuple(stack([kv[t] for kv in state["cross"]])
+                             for t in (0, 1))
+    return out

@@ -13,7 +13,9 @@
 
 Group-wise dispatch (the reference's ``DISPATCH_GROUPS``) splits the
 tokens into ``groups`` equal groups, each with its own capacity (the
-reference maps over them, the port loops).  The reference also
+reference maps over them, the port loops); a module dispatches in its
+``groups`` groups (0, one global dispatch, by default; the dry-run's
+``--moe-local`` sets it).  The reference also
 pins the group dimension to the data axes of a mesh (``MESH``); one
 device has no such constraint, so nothing here stands for it.
 """
@@ -30,6 +32,8 @@ class MoE(nn.Module):
     """Router and stacked expert weights (``init_moe``); ``moe`` is the
     layer's :class:`MoEConfig`."""
 
+    groups = 0  # dispatch groups (``moe_mlp``'s ``groups``)
+
     def __init__(self, gen: torch.Generator, cfg, moe, dtype=torch.float32):
         super().__init__()
         d, ff, E = cfg.d_model, cfg.d_ff, moe.n_experts
@@ -40,7 +44,8 @@ class MoE(nn.Module):
         self.w_down = dense_init(gen, (E, ff, d), dtype=dtype)
 
     def forward(self, x, return_aux=False):
-        return moe_mlp(self, x, self.moe, return_aux=return_aux)
+        return moe_mlp(self, x, self.moe, groups=self.groups,
+                       return_aux=return_aux)
 
 
 def capacity(n_tokens: int, moe) -> int:
@@ -66,7 +71,11 @@ def dispatch(idx: torch.Tensor, n_experts: int, cap: int):
     expert, whether it fits, its row in the (E*C + 1)-row buffer), each
     (T*k,); a dropped choice's row is the last."""
     eid = idx.reshape(-1)
-    oh = F.one_hot(eid, n_experts).to(torch.int32)
+    # the one-hot as a comparison: ``F.one_hot`` takes another path on
+    # the meta device than on a real one, and the dry-run's byte count
+    # must not depend on the device
+    oh = (eid[:, None] == torch.arange(n_experts, device=eid.device)
+          ).to(torch.int32)
     pos = torch.gather(torch.cumsum(oh, dim=0, dtype=torch.int32) - 1, 1,
                        eid[:, None])[:, 0]
     keep = pos < cap

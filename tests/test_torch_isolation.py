@@ -4,8 +4,9 @@
 (``tools/torch_*.py``) and its examples (``examples/torch_*.py``) must
 import nothing of ``jax`` and nothing of the JAX package ``repro``: a
 subprocess with both blocked in ``sys.modules`` imports every port
-module and example and runs ``detect_batch`` and an LM train step on
-the CPU.  The entry points run on the card unless the caller asks for
+module and example and runs ``detect_batch``, an LM train step and one
+reduced cell of the LM's dry-run CLI (``python -m
+repro_torch.launch.dryrun``) on the CPU.  The entry points run on the card unless the caller asks for
 the CPU (``python -m repro_torch.launch.train`` without a card and
 without ``--device cpu`` exits non-zero), and ``chip_smoke.py`` exits
 non-zero with no result line when there is no card or when the
@@ -61,6 +62,23 @@ tok = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 16)))
 model, _, met = step.make_train_step(cfg, opt.AdamWConfig())(
     model, opt.init_opt_state(lm.param_tree(model)), {{"tokens": tok}})
 assert np.isfinite(float(met["loss"]))
+import json, pathlib, shutil, tempfile
+from repro_torch.launch import dryrun, hlo_analysis
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.sharding.planner import (batch_specs, decode_state_specs,
+                                          opt_specs, param_specs,
+                                          shard_shape, to_shardings)
+out = tempfile.mkdtemp()
+sys.argv = ["dryrun", "--arch", "smollm-360m", "--reduced", "--shape",
+            "decode_32k", "--mesh", "single", "--out", out]
+try:
+    runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+rec = json.loads((pathlib.Path(out) / "smollm-360m-reduced__decode_32k__"
+                  "single__baseline.json").read_text())
+shutil.rmtree(out)
+assert rec["status"] == "ok" and rec["derived"]["flops_per_device"] > 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 assert all(sys.modules[m] is None for m in bad), bad
