@@ -61,7 +61,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import interleave, lanes as lanes_lib
+from repro_torch.core import interleave, lanes as lanes_lib, trace
 from repro_torch.core.rs.codec import DEFAULT_CODE, RSCode
 from repro_torch.core.stages import STAGE_NAMES, StageRegistry, host_numpy
 
@@ -133,8 +133,7 @@ class DetectionPipeline:
         self.gt = ground_truth_bits
         self.stages = StageRegistry(cfg, extractor_params, self.device)
         self._seq = 0                 # batch counter (keys)
-        self._stats_lock = threading.Lock()
-        self.stats: Dict[str, float] = {"batches": 0, "images": 0}
+        self._registry_lock = threading.Lock()
         self._shard_registries: Dict[torch.device, StageRegistry] = {}
 
     def _finish(self, msg, ok, ncorr, logits,
@@ -142,19 +141,19 @@ class DetectionPipeline:
         """The sink: the single place device tensors become numpy (the
         host RS engines hand numpy already).  ``tiles_used`` is reported
         only when escalation is configured, so ``escalate_tiles=1``
-        results keep the schema they had without it."""
-        with self._stats_lock:
-            self.stats["batches"] += 1
-            self.stats["images"] += logits.shape[0]
-        out = {"message_bits": host_numpy(msg), "ok": host_numpy(ok),
-               "n_corrected": host_numpy(ncorr),
-               "logits": host_numpy(logits)}
-        if tiles_used is not None and self.stages.policy.enabled:
-            out["tiles_used"] = np.asarray(tiles_used)
-        if self.gt is not None:
-            out["match"] = np.all(
-                out["message_bits"] == self.gt[None, : msg.shape[1]],
-                axis=1)
+        results keep the schema they had without it.  It counts the
+        ``batches`` it finishes (``core.trace``)."""
+        with trace.span("finish"):
+            trace.count("batches")
+            out = {"message_bits": host_numpy(msg), "ok": host_numpy(ok),
+                   "n_corrected": host_numpy(ncorr),
+                   "logits": host_numpy(logits)}
+            if tiles_used is not None and self.stages.policy.enabled:
+                out["tiles_used"] = np.asarray(tiles_used)
+            if self.gt is not None:
+                out["match"] = np.all(
+                    out["message_bits"] == self.gt[None, : msg.shape[1]],
+                    axis=1)
         return out
 
     def detect_batch(self, raw_batch, *, key: Optional[torch.Tensor] = None,
@@ -276,10 +275,10 @@ class DetectionPipeline:
                                else (item, None))
                     if i == 0:
                         self.stages.prepare(raw.shape)
-                    bkey = self.stages.batch_key(seq0 + i)
-                    p = {"raw": raw, "seq": seq0 + i,
-                         "keys": self.stages.image_keys(bkey,
-                                                        raw.shape[0])}
+                    with trace.span("feed.keys", seq0 + i):
+                        bkey = self.stages.batch_key(seq0 + i)
+                        keys = self.stages.image_keys(bkey, raw.shape[0])
+                    p = {"raw": raw, "seq": seq0 + i, "keys": keys}
                     if tb is not None:
                         p["true_b"] = tb
                     yield p
@@ -319,7 +318,7 @@ class DetectionPipeline:
         and no thread pool."""
         if _index(device) == _index(self.device):
             return self.stages
-        with self._stats_lock:   # run_batch's chunk threads
+        with self._registry_lock:   # run_batch's chunk threads
             reg = self._shard_registries.get(device)
             if reg is None:
                 reg = StageRegistry(

@@ -19,6 +19,11 @@ Two execution modes share the worker machinery: :meth:`LaneExecutor.run`
 :meth:`~LaneExecutor.reconfigure`).  This is the reference's plain
 threading, unchanged.
 
+Each worker records its wait for input (``lane.wait_in``), its stage
+function (``stage.<name>``, with the payload's ``seq``) and its wait for
+room downstream (``lane.wait_out``) as :mod:`repro_torch.core.trace`
+spans; each costs one call while recording is off.
+
 Lanes as CUDA streams (:class:`LaneStreams`): on a card each worker
 thread of a stage runs its stage function on a non-default stream of its
 own, made at its first payload, so the kernel wrappers (which launch on
@@ -40,6 +45,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, \
     Sequence
 
 import torch
+
+from repro_torch.core import trace
 
 
 @dataclasses.dataclass
@@ -75,6 +82,18 @@ class _Failure:
 
 
 _DONE = object()
+
+
+def _run_stage(stage: "Stage", span_name: str, payload):
+    """``stage.fn(payload)`` inside the stage's span (named
+    ``span_name``, with the payload's ``seq`` where it carries one, and
+    the thread CPU time it used); an error becomes a :class:`_Failure`."""
+    try:
+        with trace.span(span_name, payload.get("seq")
+                        if isinstance(payload, dict) else None, cpu=True):
+            return stage.fn(payload)
+    except BaseException as e:
+        return _Failure(e)
 
 
 class _Retire:
@@ -232,19 +251,19 @@ class LaneExecutor:
         stage = self.stages[idx]
         in_q = self._qs[idx]
         nxt = self._qs[idx + 1] if idx + 1 < len(self._qs) else self._out_q
+        span_name = "stage." + stage.name
         while True:
-            got = self._get(in_q)
+            with trace.span("lane.wait_in", wait=True):
+                got = self._get(in_q)
             if got is _DONE:          # cancelled
                 return
             if isinstance(got, _Retire):   # live lane removal
                 return
             seq, payload = got
             if not isinstance(payload, _Failure):
-                try:
-                    payload = stage.fn(payload)
-                except BaseException as e:
-                    payload = _Failure(e)
-            self._put(nxt, (seq, payload))
+                payload = _run_stage(stage, span_name, payload)
+            with trace.span("lane.wait_out", wait=True):
+                self._put(nxt, (seq, payload))
 
     def _deliver_rejection(self, ticket: Ticket, callback):
         """Reject a ticket AND fire its callback: completion callbacks
@@ -399,8 +418,10 @@ class LaneExecutor:
         def worker(idx: int, stage: Stage, done_box: dict):
             in_q = qs[idx]
             nxt = qs[idx + 1] if idx + 1 < len(qs) else out_q
+            span_name = "stage." + stage.name
             while True:
-                got = self._get(in_q)
+                with trace.span("lane.wait_in", wait=True):
+                    got = self._get(in_q)
                 if got is _DONE:
                     with done_box["lock"]:
                         done_box["n"] += 1
@@ -413,11 +434,9 @@ class LaneExecutor:
                 if isinstance(payload, _Failure):
                     self._put(nxt, (seq, payload))
                     continue
-                try:
-                    payload = stage.fn(payload)
-                except BaseException as e:
-                    payload = _Failure(e)
-                self._put(nxt, (seq, payload))
+                payload = _run_stage(stage, span_name, payload)
+                with trace.span("lane.wait_out", wait=True):
+                    self._put(nxt, (seq, payload))
 
         threads = [threading.Thread(target=feeder, daemon=True,
                                     name=f"{self.name}/feed")]
@@ -516,9 +535,11 @@ def upload(a, device: torch.device) -> torch.Tensor:
     t = torch.as_tensor(a)
     if device.type != "cuda" or t.is_cuda:
         return t.to(device).contiguous()
-    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    pinned.copy_(t)
-    return pinned.to(device, non_blocking=True)
+    with trace.span("upload.pin"):
+        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        pinned.copy_(t)
+    with trace.span("upload.copy"):
+        return pinned.to(device, non_blocking=True)
 
 
 class LaneStreams:

@@ -41,6 +41,11 @@ content-derived request key (:meth:`StageRegistry.content_key`) and the
 embedding-emitting decode (:meth:`StageRegistry.decode_keyed_embed`,
 ``build_stages(emit_embed=True)``), whose logits are bitwise the
 embed-free decode's.
+
+Spans (:mod:`repro_torch.core.trace`): ``ingest.offsets``,
+``escalate`` with its ``escalate.plan``, ``escalate.round`` and
+``escalate.gather``, and ``sync`` around every copy of a tensor back to
+the host (:func:`host_numpy`).
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ import torch
 
 from repro_torch.core import extractor as extractor_lib
 from repro_torch.core import lanes as lanes_lib
-from repro_torch.core import prng, tiling, transforms
+from repro_torch.core import prng, tiling, trace, transforms
 from repro_torch.core.rs import torch_rs
 from repro_torch.core.rs.codec import RSCode, rs_decode
 from repro_torch.core.rs.cpu_pool import RSCorrectionPool
@@ -82,8 +87,14 @@ def make_device_rs(code: RSCode) -> Callable:
 
 
 def host_numpy(a) -> np.ndarray:
-    """A tensor (copied to the host) or array-like as a numpy array."""
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    """A tensor (copied to the host) or array-like as a numpy array: the
+    one place a tensor comes back to the host, so its copy is the
+    ``sync`` span, where the host waits for the card (with the thread
+    CPU time it used, which a stage span around it leaves out)."""
+    if isinstance(a, torch.Tensor):
+        with trace.span("sync", wait=True, cpu=True):
+            return a.cpu().numpy()
+    return np.asarray(a)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,12 +294,14 @@ class StageRegistry:
         cfg = self.cfg
         if not self.tile_first:
             return self.preprocess(raw)
-        offs = tiling.tile_first_offsets(cfg.strategy, keys,
-                                         img_size=cfg.img_size,
-                                         tile=cfg.tile)
+        with trace.span("ingest.offsets"):
+            offs = tiling.tile_first_offsets(cfg.strategy, keys,
+                                             img_size=cfg.img_size,
+                                             tile=cfg.tile)
+            offs = offs.to(raw.device).contiguous()
         return kops.fused_tile_preprocess(
-            raw, offs.to(raw.device).contiguous(), resize=cfg.resize_src,
-            crop=cfg.img_size, tile=cfg.tile)
+            raw, offs, resize=cfg.resize_src, crop=cfg.img_size,
+            tile=cfg.tile)
 
     def extract(self, tiles: torch.Tensor) -> torch.Tensor:
         """Decode-ready tiles -> bit logits: the fused kernel on the
@@ -450,31 +463,40 @@ class StageRegistry:
         tiles_used = np.ones(b, np.int32)
         if not self.policy.enabled:
             return msg, ok, ncorr, logits, tiles_used
-        on_dev = isinstance(ok, torch.Tensor)
-        msg, ok, ncorr = (a.clone() if on_dev else np.array(a)
-                          for a in (msg, ok, ncorr))
-        acc = logits.to(torch.float32).clone()
-        need = self.policy.wants_escalation(ok, acc)
-        plan_rows = plan = None
-        for r in range(1, self.policy.max_tiles):
-            idx = np.nonzero(need)[0]
-            if idx.size == 0:
-                break
-            if plan is None:
-                plan_rows = idx
-                plan = self.escalation_plan(keys[torch.as_tensor(idx)])
-            at_plan = torch.as_tensor(np.searchsorted(plan_rows, idx))
-            idx_d = torch.as_tensor(idx).to(raw.device, non_blocking=True)
-            new = self.decode_tiles(self._tiles_at(
-                raw.index_select(0, idx_d), plan[at_plan, r]))
-            sub_acc = acc[idx_d] + new
-            acc[idx_d] = sub_acc
-            m2, o2, c2 = self.rs_correct(self.bits(sub_acc))
-            at = idx_d if on_dev else idx
-            msg[at], ok[at], ncorr[at] = m2, o2, c2
-            tiles_used[idx] = r + 1
-            need[:] = False
-            need[idx] = self.policy.wants_escalation(o2, sub_acc)
+        with trace.span("escalate"):
+            on_dev = isinstance(ok, torch.Tensor)
+            msg, ok, ncorr = (a.clone() if on_dev else np.array(a)
+                              for a in (msg, ok, ncorr))
+            acc = logits.to(torch.float32).clone()
+            need = self.policy.wants_escalation(ok, acc)
+            plan_rows = plan = None
+            for r in range(1, self.policy.max_tiles):
+                idx = np.nonzero(need)[0]
+                if idx.size == 0:
+                    break
+                if plan is None:
+                    with trace.span("escalate.plan"):
+                        plan_rows = idx
+                        plan = self.escalation_plan(
+                            keys[torch.as_tensor(idx)])
+                with trace.span("escalate.round"):
+                    with trace.span("escalate.gather"):
+                        at_plan = torch.as_tensor(
+                            np.searchsorted(plan_rows, idx))
+                        idx_d = torch.as_tensor(idx).to(raw.device,
+                                                        non_blocking=True)
+                        sub_raw = raw.index_select(0, idx_d)
+                    new = self.decode_tiles(self._tiles_at(
+                        sub_raw, plan[at_plan, r]))
+                    with trace.span("escalate.gather"):
+                        sub_acc = acc[idx_d] + new
+                        acc[idx_d] = sub_acc
+                    m2, o2, c2 = self.rs_correct(self.bits(sub_acc))
+                    at = idx_d if on_dev else idx
+                    msg[at], ok[at], ncorr[at] = m2, o2, c2
+                    tiles_used[idx] = r + 1
+                    need[:] = False
+                    need[idx] = self.policy.wants_escalation(o2, sub_acc)
         return msg, ok, ncorr, acc, tiles_used
 
     def escalate_prefix(self, raw: torch.Tensor, keys: torch.Tensor, msg,
