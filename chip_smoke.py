@@ -42,7 +42,10 @@ In order, it
    words, and on words with entries outside {0, 1} (alone, among {0, 1}
    words, as int64 and as bool bits), its one kernel per call traced by
    the profiler, its call ms and ``ptxas -v`` registers, stack frame and
-   spills (none);
+   spills (none); the escalation plan kernel (added by the port) against
+   ``tiling.escalation_offsets`` bit for bit on every strategy and k up
+   to the cap, timed at the mixed cells' batch of 256 rows beside the
+   host ops a call of each;
 4. drives the serve launcher's code path (``repro_torch.launch.serve``)
    at full width for 3 batches of 32 synthetic images, checks that every
    kernel of the path was launched, replays one batch through the plain
@@ -1219,6 +1222,160 @@ def rs_device_ms(dev, rng, card: str, calls: int = 20):
     return ms
 
 
+# -- phase 3f: the escalation plan kernel ---------------------------------
+PLAN_KERNEL = "escalation_plan_kernel"
+# integer ops of one Threefry-2x32 block: 20 rounds of an add, a rotate
+# and a xor, five key injections of three adds, the start's two adds and
+# the key parity's two xors
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 4
+# the mixed cells' plan: a batch of 256 images (of which ~192 escalate),
+# random_grid, tile 64 (16 cells), k = 3
+PLAN_SHAPE = dict(n=256, strategy="random_grid", hw=(256, 256), tile=64,
+                  k=3)
+
+
+def plan_bound(n: int, cells: int, k: int):
+    """The least time of a ``random_grid`` plan of ``n`` rows, k > 1: a
+    row needs randint's four Threefry blocks, fold_in's one, and each
+    sort round's split (two) and ``cells`` bit draws, and a sort of
+    ``cells`` words (cells * log2(cells) compares, three ops each), at
+    the int32 ALU peak; its bytes are the keys read and the plan
+    written."""
+    import math
+    from repro_torch.core import prng
+    rounds = prng.permutation_rounds(cells)
+    ops = n * ((5 + rounds * (2 + cells)) * THREEFRY_OPS
+               + rounds * 3 * cells * math.ceil(math.log2(cells)))
+    return bound(n * 16 + n * k * 8, ops, PEAK_INT32_S)
+
+
+def aten_calls(fn) -> int:
+    """The ``aten::`` operators (nested ones included) one call of
+    ``fn`` runs on the host, read from ``torch.profiler``'s CPU
+    events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name.startswith("aten::"))
+
+
+def phase_tile_plan(dev, card: str, regs: dict) -> dict:
+    """The escalation plan kernel against its plain version,
+    ``tiling.escalation_offsets`` on the same keys on the CPU, bit for
+    bit: every strategy, ``random_grid`` at tile 32, 64 and 128 on 256
+    images at every k up to the cap, two sort rounds in shared memory
+    (4,096 cells) and in the scratch buffer (65,536 cells), 1, 192 and
+    1,000 rows, keys with the words 0 and 0xFFFFFFFF; an int32
+    contiguous plan on the keys' device and one launch counted a call.
+    At the mixed cells' shape (``PLAN_SHAPE``): call ms (the keys'
+    pageable copy and the launch, as the registry calls it; CUDA
+    events), host us a call, device ms a launch (profiled), the plain
+    version's ms on the host (the path the kernel replaced), the bound,
+    the ``aten::`` operators a call of each, registers and spills (none
+    allowed)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import tiling
+    from repro_torch.kernels import _build, ops
+    rng = np.random.default_rng(28)
+
+    def keys_of(n: int):
+        w = rng.integers(0, 2 ** 32, (n, 2), dtype=np.uint64)
+        m = min(n, 3)
+        w[:m] = np.array([(0, 0), (0xFFFFFFFF, 0xFFFFFFFF),
+                          (0, 0xFFFFFFFF)], np.uint64)[:m]
+        return torch.as_tensor(w.astype(np.int64))
+
+    full = (256, 256)
+    cases = [("random_grid", full, 32, range(1, 65), (1, 192)),
+             ("random_grid", full, 64, range(1, 17), (1, 192, 1000)),
+             ("random_grid", full, 128, range(1, 5), (1, 192, 1000)),
+             ("random", full, 64, (1, 2, 3, 8), (1, 192, 1000)),
+             ("fixed", full, 64, range(1, 17), (1, 192)),
+             ("random_grid", (128, 128), 2, (2, 5), (3,)),
+             ("random_grid", (512, 512), 2, (2,), (3,))]
+    checked = 0
+    for strategy, hw, tile, ks, ns in cases:
+        for n in ns:
+            keys = keys_of(n)
+            kd = keys.to(dev)
+            for k in ks:
+                ops.reset_launch_counts()
+                got = ops.escalation_plan(strategy, kd, hw, tile, k)
+                torch.cuda.synchronize()
+                want = tiling.escalation_offsets(strategy, keys, hw, tile, k)
+                check(got.dtype == torch.int32 and got.is_contiguous() and
+                      got.device == kd.device and
+                      torch.equal(got.cpu(), want),
+                      f"escalation plan {strategy} {hw}/{tile} n={n} k={k}: "
+                      f"differs from the plain version")
+                check(ops.launch_counts()["escalation_plan"] == 1,
+                      f"escalation plan: one call counted "
+                      f"{ops.launch_counts()['escalation_plan']} launches")
+                checked += 1
+    sh = PLAN_SHAPE
+    geo = (sh["hw"], sh["tile"], sh["k"])
+    keys = keys_of(sh["n"])
+
+    def call():
+        return ops.escalation_plan(sh["strategy"],
+                                   keys.to(dev, non_blocking=True), *geo)
+
+    ms = call_ms(call)
+    host = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        call()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    plain = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        tiling.escalation_offsets(sh["strategy"], keys, *geo)
+        plain.append(time.perf_counter() - t0)
+    kd = keys.to(dev)
+    ops.escalation_plan(sh["strategy"], kd, *geo)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(20):
+            ops.escalation_plan(sh["strategy"], kd, *geo)
+        torch.cuda.synchronize()
+    traced = [(e.count, e.self_device_time_total / 1e3 / e.count)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count and
+              PLAN_KERNEL in e.key]
+    device_ms = traced[0][1] if traced else None
+    cells = (sh["hw"][0] // sh["tile"]) * (sh["hw"][1] // sh["tile"])
+    bound_ms, by = plan_bound(sh["n"], cells, sh["k"])
+    calls = {"kernel": aten_calls(call), "plain": aten_calls(
+        lambda: tiling.escalation_offsets(sh["strategy"], keys, *geo))}
+    r = _build.registers_of(regs, PLAN_KERNEL)
+    check(r is not None and r[1] == r[2] == 0,
+          f"escalation plan: ptxas -v shows spills: {r}")
+    out = dict(max_abs_err=0.0, ms=ms, plain_ms=statistics.median(plain) *
+               1e3, host_us=statistics.median(host) * 1e6,
+               device_ms=device_ms, bound_ms=bound_ms, bound_by=by,
+               library_ms=None, kernel=PLAN_KERNEL, registers=r[0],
+               stack_bytes=r[3], spill_bytes=r[1] + r[2],
+               aten_calls=calls, plans_checked=checked, shape=sh)
+    print(f"escalation_plan ({PLAN_KERNEL}) on {card}: equal to the plain "
+          f"version on {checked} plans; at {sh['n']} rows, {sh['strategy']} "
+          f"{cells} cells, k={sh['k']}: {ms:.4f} ms a call, host "
+          f"{out['host_us']:.1f} us a call, device {device_ms} ms a launch, "
+          f"bound {bound_ms:.3g} ms ({by}), plain on the host "
+          f"{out['plain_ms']:.3f} ms; aten ops a call {calls['kernel']} "
+          f"(plain {calls['plain']}); registers {r[0]}, stack {r[3]} B, "
+          f"spills {r[1] + r[2]} B")
+    return out
+
+
 # -- phase 4: the main path through the serve launcher ---------------------
 def phase_end_to_end(card: str):
     import torch
@@ -1433,7 +1590,8 @@ def phase_configs(batches, default_results, default_ips, cache, winner,
     checked by :func:`check_blocked_int8_launches`."""
     n = len(batches)
     zero = dict(fused_tile_preprocess=0, fused_preprocess=0,
-                fused_extractor=0, fused_extractor_blocked=0, rs_decode=0)
+                fused_extractor=0, fused_extractor_blocked=0, rs_decode=0,
+                escalation_plan=0)
     auto_kernel = ("fused_extractor" if winner is None
                    else "fused_extractor_blocked")
     auto8_kernel = ("fused_extractor" if winner8 is None
@@ -1853,8 +2011,11 @@ def esc_checks(dev, geo=FULL, width=WIDTH, raw_hw=RAW, b=32,
     for n in ESC_FIELDS:
         check(np.array_equal(o3[n][stay], o1[n][stay]),
               f"k = 3: {n} of a row that did not escalate differs from k = 1")
+    # one plan a batch that escalated, drawn by the plan kernel
     want_counts = dict(fused_tile_preprocess=1 + n_rounds,
-                       fused_extractor=1 + n_rounds, rs_decode=1 + n_rounds)
+                       fused_extractor=1 + n_rounds, rs_decode=1 + n_rounds,
+                       escalation_plan=int(n_rounds > 0))
+    want_counts = {n: c for n, c in want_counts.items() if c}
     if on_card:
         check({n: c for n, c in counts.items() if c} == want_counts,
               f"k = 3: launches {counts}, expected {want_counts}")
@@ -1917,8 +2078,10 @@ def esc_serve(flags, batches, card: str) -> dict:
     rep, results = serve_lib.serve(pipe, batches)
     counts = {n: c for n, c in ops.launch_counts().items() if c}
     per = sum(1 + int(r["tiles_used"].max()) - 1 for r in results)
+    plans = sum(int(r["tiles_used"].max() > 1) for r in results)
     want = dict(fused_tile_preprocess=per, fused_extractor=per,
-                rs_decode=per)
+                rs_decode=per, **({"escalation_plan": plans} if plans
+                                  else {}))
     check(counts == want, f"serve {' '.join(flags)}: launches {counts}, "
           f"expected {want}")
     st = pipe.stages
@@ -3911,6 +4074,7 @@ def main() -> int:
               "fused_extractor": phase_extractor(dev, rng),
               "rs_decode": phase_rs(dev, rng, card, regs),
               "fused_preprocess": phase_preprocess(dev, rng, regs)}
+    tile_plan = phase_tile_plan(dev, card, regs)
     phases["fused_extractor_blocked"], cache, winner = phase_blocked(
         dev, rng, card, regs)
     rungs, winner8 = phase_rungs(dev, rng, card, cache, regs)
@@ -4091,6 +4255,15 @@ def main() -> int:
                 entry["by_rung"]["int8"]["source"] = \
                     "src/repro_torch/kernels/csrc/fused_extractor_int8.cu"
         kernels.append(entry)
+    # added by the port (no Pallas counterpart): launches of the counted
+    # k = 3 detect_batch on the damaged batch, one a batch that escalated
+    kernels.append({"name": "escalation_plan", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/tile_plan.cu",
+                    "replaces": None,
+                    "launches": escalation["counts"].get("escalation_plan",
+                                                         0),
+                    **tile_plan})
+    phases["escalation_plan"] = tile_plan
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phases": phases,
          "rungs": rungs, "window_ips": window_ips, "configs": configs,

@@ -149,6 +149,13 @@ def randint(keys: torch.Tensor, shape: Shape, minval: int, maxval: int
     return value.to(torch.int32)
 
 
+def permutation_rounds(n: int) -> int:
+    """Sort rounds of :func:`permutation` over ``n`` elements (JAX's
+    ``_shuffle``): ``ceil(3 ln n / ln(2^32 - 1))``, 1 up to n = 1625."""
+    return int(math.ceil(3 * math.log(max(1, int(n)))
+                         / math.log(2 ** 32 - 1)))
+
+
 def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.permutation(key, n)`` for an integer ``n``: keys
     (..., 2) -> int32 permutations of ``arange(n)``, (..., n).  Each
@@ -157,11 +164,9 @@ def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
     stable, so the sort here is stable and only equal draws (two 32-bit
     words that collide) could order differently."""
     n = int(n)
-    rounds = int(math.ceil(3 * math.log(max(1, n))
-                           / math.log(2 ** 32 - 1)))
     x = torch.arange(n, dtype=torch.int64, device=keys.device).expand(
         *keys.shape[:-1], n)
-    for _ in range(rounds):
+    for _ in range(permutation_rounds(n)):
         k = split(keys, 2)
         keys, sub = k[..., 0, :], k[..., 1, :]
         order = torch.sort(random_bits(sub, (n,)), dim=-1,

@@ -35,10 +35,12 @@ a CUDA stream of its own (``lanes.LaneStreams``).
 
 PyTorch runs eagerly, so there is no ``jit``: :meth:`fused_keyed` (qrmark
 with device RS) is the steps in sequence.  Keys are integer hashing,
-bit-exact anywhere, and live on the host; the offsets they give are
-copied to the device with the raw batch.  The serving tier adds the
-content-derived request key (:meth:`StageRegistry.content_key`) and the
-embedding-emitting decode (:meth:`StageRegistry.decode_keyed_embed`,
+bit-exact anywhere, and live on the host; the one-tile offsets they
+give are copied to the device with the raw batch, and escalation plans
+are drawn on the device (``ops.escalation_plan``).  The serving tier
+adds the content-derived request key (:meth:`StageRegistry.content_key`)
+and the embedding-emitting decode
+(:meth:`StageRegistry.decode_keyed_embed`,
 ``build_stages(emit_embed=True)``), whose logits are bitwise the
 embed-free decode's.
 
@@ -394,12 +396,16 @@ class StageRegistry:
 
     # -- adaptive multi-tile escalation --------------------------------
     def escalation_plan(self, keys: torch.Tensor) -> torch.Tensor:
-        """(b, k, 2) int32 tile offsets a batch on the host: column 0 is
-        the one-tile draw, so round 1 is the unchanged fast path."""
+        """(b, k, 2) int32 tile offsets a batch on the registry's device:
+        column 0 is the one-tile draw, so round 1 is the unchanged fast
+        path.  On a card the keys go over once (pageable memory is staged
+        before the copy returns, so nothing waits) and the plan kernel
+        draws the plan on the current stream (``ops.escalation_plan``);
+        on the CPU it is ``tiling.escalation_offsets``."""
         cfg = self.cfg
-        return tiling.escalation_offsets(
-            cfg.strategy, keys, (cfg.img_size, cfg.img_size), cfg.tile,
-            self.policy.max_tiles)
+        return kops.escalation_plan(
+            cfg.strategy, keys.to(self.device, non_blocking=True),
+            (cfg.img_size, cfg.img_size), cfg.tile, self.policy.max_tiles)
 
     def _tiles_at(self, raw: torch.Tensor, offs: torch.Tensor
                   ) -> torch.Tensor:
@@ -451,9 +457,10 @@ class StageRegistry:
         no image is flagged or the budget is spent.  The sub-batch is the
         flagged rows themselves (no padding: every op is batch-stable,
         so a row's result does not depend on who shares its round).  The
-        plan is drawn once, for the rows round 2 takes (a row's plan
-        depends on its key only, so these are :meth:`escalate_round`'s
-        tiles).  The host waits once a round, for ``ok`` (and with a
+        plan is drawn once, on the registry's device, for every row of
+        the batch (a row's plan depends on its key only, so these are
+        :meth:`escalate_round`'s tiles); each round indexes its rows
+        there.  The host waits once a round, for ``ok`` (and with a
         margin for the sums).  Returns (msg, ok, ncorr, summed logits,
         tiles_used): RS outputs where the engine made them (tensors on
         the device, numpy from a host engine), tiles_used numpy; with
@@ -469,25 +476,21 @@ class StageRegistry:
                               for a in (msg, ok, ncorr))
             acc = logits.to(torch.float32).clone()
             need = self.policy.wants_escalation(ok, acc)
-            plan_rows = plan = None
+            plan = None
             for r in range(1, self.policy.max_tiles):
                 idx = np.nonzero(need)[0]
                 if idx.size == 0:
                     break
                 if plan is None:
                     with trace.span("escalate.plan"):
-                        plan_rows = idx
-                        plan = self.escalation_plan(
-                            keys[torch.as_tensor(idx)])
+                        plan = self.escalation_plan(keys)
                 with trace.span("escalate.round"):
                     with trace.span("escalate.gather"):
-                        at_plan = torch.as_tensor(
-                            np.searchsorted(plan_rows, idx))
                         idx_d = torch.as_tensor(idx).to(raw.device,
                                                         non_blocking=True)
                         sub_raw = raw.index_select(0, idx_d)
                     new = self.decode_tiles(self._tiles_at(
-                        sub_raw, plan[at_plan, r]))
+                        sub_raw, plan[idx_d, r]))
                     with trace.span("escalate.gather"):
                         sub_acc = acc[idx_d] + new
                         acc[idx_d] = sub_acc

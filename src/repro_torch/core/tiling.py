@@ -130,6 +130,18 @@ def max_escalation_tiles(strategy: str, image_hw, tile: int) -> int:
     return 2 ** 30
 
 
+def check_escalation_k(strategy: str, image_hw, tile: int, k: int):
+    """Raise ValueError unless 1 <= ``k`` <= :func:`max_escalation_tiles`."""
+    H, W = image_hw
+    if k < 1:
+        raise ValueError(f"escalation needs k >= 1, got {k}")
+    cap = max_escalation_tiles(strategy, image_hw, tile)
+    if k > cap:
+        raise ValueError(
+            f"strategy {strategy!r} on {H}x{W}/{tile} supports at most "
+            f"{cap} distinct tiles, got k={k}")
+
+
 def _cells_to_offsets(cells: torch.Tensor, gx: int, tile: int
                       ) -> torch.Tensor:
     return (torch.stack([cells // gx, cells % gx], dim=-1) * tile).to(
@@ -149,15 +161,10 @@ def escalation_offsets(strategy: str, keys: torch.Tensor, image_hw,
     * ``fixed``: the grid cells in raster order from the top left;
     * ``random``: column j drawn from ``fold_in(key, _ESC_SALT + j)``.
 
-    Image i's plan depends only on ``keys[i]`` and the geometry."""
+    Image i's plan depends only on ``keys[i]`` and the geometry.
+    ``ops.escalation_plan`` draws the same plan on the keys' device."""
     H, W = image_hw
-    if k < 1:
-        raise ValueError(f"escalation needs k >= 1, got {k}")
-    cap = max_escalation_tiles(strategy, image_hw, tile)
-    if k > cap:
-        raise ValueError(
-            f"strategy {strategy!r} on {H}x{W}/{tile} supports at most "
-            f"{cap} distinct tiles, got k={k}")
+    check_escalation_k(strategy, image_hw, tile, k)
     col0 = per_image_offsets(strategy, keys, image_hw, tile)
     b = keys.shape[0]
     gx = W // tile

@@ -50,6 +50,7 @@ SIGNATURES: Dict[str, List] = {
     "qr_conv3x3_imma_blocked": [_P] * 8 + [_I] * 7 + [_P],
     "qr_conv3x3_gap_corr_imma": [_P] * 9 + [_I] * 5 + [_P],
     "qr_rs_decode": [_P] * 5 + [_I] + [_P],
+    "qr_escalation_plan": [_P] * 3 + [_I] * 8 + [_P],
 }
 
 # Launches per kernel wrapper: each wrapper adds one where it launches
@@ -58,7 +59,7 @@ SIGNATURES: Dict[str, List] = {
 # increment and reset holds ``count_lock`` (``count``, ``count_kernel``).
 launch_counts: Dict[str, int] = {
     "fused_tile_preprocess": 0, "fused_preprocess": 0, "fused_extractor": 0,
-    "fused_extractor_blocked": 0, "rs_decode": 0}
+    "fused_extractor_blocked": 0, "rs_decode": 0, "escalation_plan": 0}
 
 # Launches per CUDA kernel of the decode ops, by the kernel's name as
 # ``ptxas`` and the profiler print it without spaces (for example

@@ -12,6 +12,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core import tiling as _tiling
 from repro_torch.core.rs import torch_rs as _torch_rs
 from repro_torch.core.rs.codec import DEFAULT_CODE, RSCode
 from repro_torch.kernels import _build
@@ -19,6 +20,7 @@ from repro_torch.kernels import fused_extractor as _fx
 from repro_torch.kernels import fused_preprocess as _fp
 from repro_torch.kernels import fused_tile_preprocess as _ftp
 from repro_torch.kernels import rs_decode as _rs
+from repro_torch.kernels import tile_plan as _tp
 
 
 def _on_cpu(t: torch.Tensor, op: str) -> bool:
@@ -87,6 +89,18 @@ def rs_decode(bits: torch.Tensor, *, code: RSCode = DEFAULT_CODE
         return _torch_rs.make_batch_decoder(code)(bits)
     fn = _rs.rs_decode_plain if cpu else _rs.rs_decode_cuda
     return fn(bits)
+
+
+def escalation_plan(strategy: str, keys: torch.Tensor, image_hw,
+                    tile: int, k: int) -> torch.Tensor:
+    """Per-image k-tile escalation plans: keys (n, 2) int64 -> (n, k, 2)
+    int32 offsets on the keys' device, bit for bit
+    ``tiling.escalation_offsets`` (its plain version).  Arguments either
+    version does not take raise ValueError first (``tile_plan.check``)."""
+    if _on_cpu(keys, "escalation_plan"):
+        _tp.check(strategy, keys, image_hw, tile, k)
+        return _tiling.escalation_offsets(strategy, keys, image_hw, tile, k)
+    return _tp.escalation_plan_cuda(strategy, keys, image_hw, tile, k)
 
 
 def launch_counts() -> Dict[str, int]:

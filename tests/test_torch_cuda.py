@@ -20,7 +20,9 @@ flat kernel's C entry point against the blocked one's; at int8 the words
 and scales each writes for the next layer, ``QuantAct``: no int8 path
 launches a quantize pass), and a row's logits do not depend on the batch
 it came in.  The RS kernel equals the plain version on words with
-entries outside {0, 1} and on int64 and bool bits.
+entries outside {0, 1} and on int64 and bool bits.  The escalation plan
+kernel, which the port added, equals ``tiling.escalation_offsets``
+exactly, on every strategy and k up to the cap.
 """
 import numpy as np
 import pytest
@@ -548,3 +550,69 @@ def test_full_width_rows_do_not_depend_on_batch(dev, dtype):
     torch.cuda.synchronize()
     assert torch.equal(part[0], full[0][7:20])
     assert torch.equal(part[1], full[1][7:20])
+
+
+# -- escalation plans ---------------------------------------------------------
+# (strategy, image (H, W), tile, the k to hold, or None for 1 to the cap):
+# random_grid at tile 32, 64 and 128 on 256 images (64, 16 and 4 cells),
+# random on a square and a non-square image, fixed on 256 and a 3 x 3 grid
+PLAN_GEOMS = [("random_grid", (256, 256), 32, None),
+              ("random_grid", (256, 256), 64, None),
+              ("random_grid", (256, 256), 128, None),
+              ("random", (256, 256), 64, (1, 2, 3, 4, 8, 33)),
+              ("random", (40, 32), 16, (1, 2, 3, 5)),
+              ("fixed", (256, 256), 64, None),
+              ("fixed", (48, 48), 16, None)]
+
+
+def _plan_keys(n: int, seed: int) -> torch.Tensor:
+    """(n, 2) int64 uint32 words on the CPU, the words 0 and 0xFFFFFFFF
+    in the first rows."""
+    w = np.random.default_rng(seed).integers(0, 2 ** 32, (n, 2),
+                                             dtype=np.uint64)
+    m = min(n, 3)
+    w[:m] = np.array([(0, 0), (0xFFFFFFFF, 0xFFFFFFFF), (0, 0xFFFFFFFF)],
+                     np.uint64)[:m]
+    return torch.as_tensor(w.astype(np.int64))
+
+
+@pytest.mark.parametrize("n", [0, 1, 192, 256, 1000])
+@pytest.mark.parametrize("strategy,hw,tile,ks", PLAN_GEOMS)
+def test_plan_kernel_equals_plain(dev, strategy, hw, tile, ks, n):
+    """The kernel's plan equals ``tiling.escalation_offsets`` on the same
+    keys on the CPU, bit for bit, at every k (up to the cap, which raises
+    one past it as the plain version does): an int32 contiguous plan on
+    the keys' device, one launch a call (none for no rows)."""
+    keys = _plan_keys(n, seed=n + tile)
+    kd = keys.to(dev)
+    cap = tiling.max_escalation_tiles(strategy, hw, tile)
+    for k in (range(1, cap + 1) if ks is None else ks):
+        ops.reset_launch_counts()
+        got = ops.escalation_plan(strategy, kd, hw, tile, k)
+        assert ops.launch_counts()["escalation_plan"] == (1 if n else 0)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.is_contiguous()
+        assert got.device == kd.device and got.shape == (n, k, 2)
+        want = tiling.escalation_offsets(strategy, keys, hw, tile, k)
+        assert torch.equal(got.cpu(), want), k
+    if ks is None:
+        ops.reset_launch_counts()
+        with pytest.raises(ValueError, match="at most") as mine:
+            ops.escalation_plan(strategy, kd, hw, tile, cap + 1)
+        with pytest.raises(ValueError) as plain:
+            tiling.escalation_offsets(strategy, keys, hw, tile, cap + 1)
+        assert str(mine.value) == str(plain.value)
+        assert ops.launch_counts()["escalation_plan"] == 0
+
+
+@pytest.mark.parametrize("hw,tile,ks", [
+    ((128, 128), 2, (2, 7, 4096)),   # 4,096 cells: two sort rounds, 48 KB
+    ((256, 256), 2, (2, 9)),         # 16,384 cells: 192 KB of shared memory
+    ((512, 512), 2, (2,))])          # 65,536 cells: the scratch buffer
+def test_plan_kernel_large_grids(dev, hw, tile, ks):
+    keys = _plan_keys(3, seed=tile)
+    for k in ks:
+        got = ops.escalation_plan("random_grid", keys.to(dev), hw, tile, k)
+        torch.cuda.synchronize()
+        want = tiling.escalation_offsets("random_grid", keys, hw, tile, k)
+        assert torch.equal(got.cpu(), want), (hw, k)

@@ -10,7 +10,8 @@ same batches with the same keys, bit for bit, at fp32 and int8; the
 decode kernels of a ``run_stream`` with 4 decode lanes run on more than
 one CUDA stream (read from a ``torch.profiler`` trace); and a cold
 pipeline's first ``run_stream`` at 4 lanes, with every cached device
-constant dropped first, equals serial execution.
+constant dropped first, equals serial execution; an escalating
+``run_stream`` draws one plan on the card a batch that escalated.
 """
 import json
 
@@ -101,3 +102,19 @@ def test_cold_pipeline_at_four_lanes_equals_serial(dev, stream):
     cold = _pipe(dev, decode_dtype="int8")
     got = cold.run_stream(stream, lanes=4)["results"]
     _equal(got, _serial(_pipe(dev, decode_dtype="int8"), stream))
+
+
+def test_escalated_stream_draws_one_plan_a_batch(dev, stream):
+    """An escalating ``run_stream`` (k = 3; the random detector fails RS
+    on most rows) launches the plan kernel once for each batch that
+    escalated, and equals serial ``detect_batch``."""
+    from repro_torch.kernels import ops
+    pipe = _pipe(dev, escalate_tiles=3)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = pipe.run_stream(stream)["results"]
+    torch.cuda.synchronize()
+    plans = ops.launch_counts()["escalation_plan"]
+    escalated = sum(int(r["tiles_used"].max() > 1) for r in got)
+    assert escalated > 0 and plans == escalated
+    _equal(got, _serial(_pipe(dev, escalate_tiles=3), stream))
