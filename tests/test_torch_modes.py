@@ -16,10 +16,11 @@ The JAX pipeline runs its staged engine (``fused_keyed`` set to None,
 so ``detect_batch`` goes ingest -> decode -> ``rs_correct``; the
 reference holds its fused fast path bitwise equal to that), and its
 ``make_device_rs`` is ``jax_rs``'s batched decoder, memoized per code
-for this module: the JAX package's own tests hold it bit-equal to its
-Pallas RS kernel, which compiles in about 15 s in interpret mode where
-``jax_rs`` takes a second (``tests/test_torch_rs.py`` holds the port's
-RS to the Pallas kernel itself).  Nothing in the JAX package changes.
+for this module (``tests/shared_rs.py``): the JAX package's own tests
+hold it bit-equal to its Pallas RS kernel, which compiles in about 15 s
+in interpret mode where ``jax_rs`` takes a second
+(``tests/test_torch_rs.py`` holds the port's RS to the Pallas kernel
+itself).  Nothing in the JAX package changes.
 """
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ from repro_torch.core import tiling
 from repro_torch.core.detect import DetectionConfig, DetectionPipeline
 from repro_torch.core.rs import codec
 from repro_torch.kernels import autotune
+from shared_rs import memoized
 
 torch.set_num_threads(1)
 
@@ -75,16 +77,9 @@ def _raw(seed, b=6):
 
 @pytest.fixture(scope="module")
 def shared_device_rs():
-    made = {}
-
-    def memo(code):
-        key = (code.m, code.n, code.k)
-        if key not in made:
-            made[key] = jax_rs.make_batch_decoder(code)
-        return made[key]
-
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jstages, "make_device_rs", memo)
+        mp.setattr(jstages, "make_device_rs",
+                   memoized(jax_rs.make_batch_decoder))
         yield
 
 
